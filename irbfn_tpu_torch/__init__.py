@@ -8,10 +8,13 @@ subpackage mirrors the JAX package's layout and function names:
 - ``irbfn_tpu_torch.dynamics`` — vehicle parameters, single-track and
   Frenet dynamics.
 - ``irbfn_tpu_torch.models``   — the basis registry and ``WCRBFNet``.
-- ``irbfn_tpu_torch.ops``      — the fused RBF forward (CUDA kernel and its
-  plain PyTorch version).
-- ``irbfn_tpu_torch.planning`` — ``IRBFNFrenetPlanner``.
+- ``irbfn_tpu_torch.ops``      — the fused RBF forward and the goal-family
+  ADMM solve (CUDA kernels and their plain PyTorch versions).
+- ``irbfn_tpu_torch.parallel`` — lattice generation on one device and the
+  goal-MPC table generator.
+- ``irbfn_tpu_torch.planning`` — ``IRBFNFrenetPlanner``, ``GoalMPCPlanner``.
 - ``irbfn_tpu_torch.sim``      — track, Frenet frame, ``TrackEnv``.
+- ``irbfn_tpu_torch.solvers``  — the goal-MPC condensed box QP.
 - ``irbfn_tpu_torch.train``    — config and weights from JSON + numpy.
 
 Float32 matrix products run in full f32 wherever the port runs: the
@@ -28,8 +31,10 @@ from irbfn_tpu_torch import (  # noqa: E402,F401
     dynamics,
     models,
     ops,
+    parallel,
     planning,
     sim,
+    solvers,
     train,
 )
 

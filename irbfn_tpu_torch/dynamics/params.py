@@ -5,6 +5,8 @@ tensor for one vehicle, or a ``(B,)`` tensor to give each lane of a batched
 rollout its own value (a (mu, cs) sweep is one batch axis). The field order
 is the reference's 13-float parameter vector
 ``[mu, m, I, lf, lr, C_Sf, C_Sr, h, dt, sv_max, a_max, s_max, v_max]``.
+``f1tenth_params`` and ``fullscale_params`` put their tensors on ``device``
+(None: the card).
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from irbfn_tpu_torch._device import resolve_device
 
 G = 9.81
 
@@ -64,6 +68,7 @@ class VehicleParams:
 
 
 def _make(vals, dtype, device) -> VehicleParams:
+    device = resolve_device(device)
     return VehicleParams(*[torch.as_tensor(v, dtype=dtype, device=device)
                            for v in vals])
 

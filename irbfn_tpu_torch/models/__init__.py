@@ -14,7 +14,8 @@ _NOT_PORTED = ("DeeperWCRBFNet", "MLP", "ClusterWCRBFNet")
 def from_config(config: dict, dtype=None, device=None,
                 model_class: str = "WCRBFNet") -> WCRBFNet:
     """Rebuild a model from a trainer-written config dict (the YAML schema
-    of ``irbfn_tpu.train.save_config``, read here from JSON)."""
+    of ``irbfn_tpu.train.save_config``, read here from JSON), on ``device``
+    (None: the card)."""
     import torch
 
     cls = config.get("model_class", model_class)

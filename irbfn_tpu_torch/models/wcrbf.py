@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from irbfn_tpu_torch._device import resolve_device
 from irbfn_tpu_torch.models.kernels import BASIS_FUNCTIONS
 from irbfn_tpu_torch.ops import rbf as _rbf
 
@@ -89,7 +90,7 @@ class WCRBFNet(nn.Module):
         self.activation_idx = tuple(int(d) for d in activation_idx)
         R, K, F = self.num_regions, self.num_kernels, self.in_features
         n_feat = R * K + R if head_mode == "per_region" else K
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=resolve_device(device))
         self.centers = nn.Parameter(torch.zeros((R, K, F), **kw))
         self.log_sigs = nn.Parameter(torch.zeros((R, K), **kw))
         self.head_kernel = nn.Parameter(torch.zeros((n_feat, out_features),

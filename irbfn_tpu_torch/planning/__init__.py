@@ -1,5 +1,6 @@
-"""Planner layer: the learned Frenet planner."""
+"""Planner layer: the learned Frenet planner and the goal-MPC planner."""
 
+from irbfn_tpu_torch.planning.goal_planner import GoalMPCPlanner
 from irbfn_tpu_torch.planning.planner import IRBFNFrenetPlanner, PlanResult
 
-__all__ = ["IRBFNFrenetPlanner", "PlanResult"]
+__all__ = ["GoalMPCPlanner", "IRBFNFrenetPlanner", "PlanResult"]

@@ -6,8 +6,9 @@ exact-reflection mirror, the clamp into the trained grid, the WCRBF net
 (whose forward is the fused CUDA kernel on the card), the un-mirror, and a
 Frenet rollout of the planned controls.
 
-The cartesian, NMPC, adaptive and grip-adaptive planners are still to be
-ported.
+``_lookahead_goal`` is the goal-MPC planner's waypoint lookup
+(``planning/goal_planner.py``). The cartesian, NMPC, adaptive and
+grip-adaptive planners are still to be ported.
 """
 
 from __future__ import annotations
@@ -19,6 +20,25 @@ import torch
 from irbfn_tpu_torch.dynamics.frenet import frenet_rollout
 from irbfn_tpu_torch.dynamics.params import VehicleParams, f1tenth_params
 from irbfn_tpu_torch.sim.track import Track, horizon_goal_speed, interp_wrapped
+
+
+def _lookahead_goal(rl_points, rl_vxs, rl_yaws, x, y, v, horizon_time=0.5,
+                    min_lookahead=0.1):
+    """Velocity-scaled lookahead waypoint on the raceline: project the pose
+    on the (uniformly resampled) raceline's points and walk the arc forward
+    by v * horizon_time. Returns (gx, gy, gtheta, gv); the goal speed is the
+    closest point's."""
+    query = torch.stack(torch.broadcast_tensors(x, y), dim=-1)
+    d2 = torch.sum((query[..., None, :] - rl_points) ** 2, dim=-1)
+    idx = torch.argmin(d2, dim=-1)
+    n = rl_points.shape[0]
+    seg = torch.linalg.norm(rl_points[1] - rl_points[0])
+    la_d = torch.clamp(torch.clamp(v, min=0.1) * horizon_time,
+                       min=min_lookahead)
+    steps = torch.ceil(la_d / seg).to(torch.int64)
+    goal_idx = torch.remainder(idx + steps, n)
+    return (rl_points[goal_idx, 0], rl_points[goal_idx, 1],
+            rl_yaws[goal_idx], rl_vxs[idx])
 
 
 class PlanResult(NamedTuple):
@@ -52,7 +72,8 @@ class IRBFNFrenetPlanner:
         self.dtype = dtype
         self.device = track.raceline.ss.device
         self.horizon = horizon
-        self.p = (dyn_params or f1tenth_params()).to(self.device, dtype)
+        self.p = (dyn_params or f1tenth_params(device=self.device)).to(
+            self.device, dtype)
         self.input_bounds = (None if input_bounds is None else
                              torch.as_tensor(input_bounds, dtype=dtype,
                                              device=self.device))

@@ -2,7 +2,9 @@
 
 Port of ``irbfn_tpu/sim/env.py``: single-track dynamics stepped with
 per-lane (mu, cs) vehicle parameters, track-relative observations, lap
-counting, noisy resets and batched rollouts. The state is a set of tensors
+counting, noisy resets and batched rollouts, in either action mode of
+``sim/safety.py:ACTION_MODES`` (``"accl"``: [accel, steer_vel]; ``"speed"``:
+[speed, steer] through the PID). The state is a set of tensors
 batched over parallel episodes; a rollout is a Python loop over control
 steps. Terminated episodes are frozen in place.
 

@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from irbfn_tpu_torch._device import resolve_device
+
 
 def wrap_angle(a):
     """Wrap to (-pi, pi]."""
@@ -85,7 +87,8 @@ def _resample_closed(points: np.ndarray, n_samples: int) -> np.ndarray:
 def from_control_points(points: np.ndarray, n_samples: int = 1024,
                         speed: float | np.ndarray = 4.0,
                         dtype=torch.float32, device=None) -> Track:
-    """Build a closed Track from (M, 2) control points."""
+    """Build a closed Track from (M, 2) control points, on ``device``
+    (None: the card)."""
     xy = _resample_closed(np.asarray(points, np.float64), n_samples)
     d = np.linalg.norm(np.roll(xy, -1, axis=0) - xy, axis=1)
     ss = np.concatenate([[0.0], np.cumsum(d)])[:-1]
@@ -98,6 +101,7 @@ def from_control_points(points: np.ndarray, n_samples: int = 1024,
     ds[ds == 0] = 1e-9
     ks = dyaw / ds
     vxs = np.broadcast_to(np.asarray(speed, np.float64), (n_samples,))
+    device = resolve_device(device)
     rl = Raceline(*[torch.tensor(np.asarray(a), dtype=dtype, device=device)
                     for a in (ss, xy[:, 0], xy[:, 1], yaws, ks, vxs, length)])
     return Track(rl)

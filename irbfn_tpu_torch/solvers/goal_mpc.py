@@ -1,0 +1,288 @@
+"""Goal-reaching kinematic MPC as a condensed box QP, batched over families.
+
+Port of ``irbfn_tpu/solvers/goal_mpc.py`` (the goal family, the row solve
+and the one-card lattice solve). Per problem: state [x, y, v, yaw] over T
+steps, controls [accel, steer] over T steps, dynamics linearised at
+(v = v_car, yaw = 0, steer = 0), a quadratic goal-tracking cost with control
+and control-difference penalties, and boxed steering, acceleration, speed
+and steering rate.
+
+The states are condensed out, so each problem is a 16-dim box QP in the
+controls whose matrices depend on the lattice point only through v_car:
+every goal of a v_car family shares P, the constraint rows and one KKT
+factorization, and each ADMM sweep over the family's goals is three small
+products per row. ``condensed_family`` is batched over a ``(F,)`` v_car
+tensor, and the ADMM loop is ``ops/admm.py:admm_solve``: the hand-written
+CUDA kernel on the card, its plain version on the CPU. Every product stays
+in exact f32 (lower-precision passes stall ADMM at r_prim ~1e-2).
+
+Outputs follow the reference ABI: speed = v_car + a_0 dt, steer = delta_0;
+goals are ordered (x_g, y_g, v_g, t_g), the state layout.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from irbfn_tpu_torch._device import resolve_device
+from irbfn_tpu_torch.ops.admm import admm_solve
+
+
+class GoalMPCConfig(NamedTuple):
+    """The reference node's mpc_config."""
+
+    horizon: int = 8  # TK
+    dt: float = 0.05  # DTK
+    wheelbase: float = 0.33  # WB
+    r_accel: float = 0.01  # Rk diag
+    r_steer: float = 5.0
+    rd_accel: float = 0.05  # Rdk diag
+    rd_steer: float = 50.0
+    q_state: tuple = (5.0, 5.0, 10.0, 1.0)  # Qk diag on [x, y, v, yaw]
+    qf_state: tuple = (15.0, 15.0, 10.0, 1.0)  # Qfk diag
+    max_steer: float = 0.4189
+    max_dsteer: float = float(np.deg2rad(180.0))
+    max_speed: float = 10.0
+    min_speed: float = -2.0
+    max_accel: float = 10.0
+
+
+class GoalQPFamily(NamedTuple):
+    """Condensed QP family for a batch of v_car linearization points; every
+    field has the batch shape of v_car in front."""
+
+    P: torch.Tensor  # (..., n, n) cost hessian, n = T*2
+    A_con: torch.Tensor  # (..., m, n) constraint rows, m = 4T - 1
+    lo: torch.Tensor  # (..., m)
+    hi: torch.Tensor  # (..., m)
+    Su: torch.Tensor  # (..., T*4, n) prediction map
+    x_free: torch.Tensor  # (..., T*4) zero-control rollout of [0, 0, v, 0]
+    qw: torch.Tensor  # (..., T*4) stacked stage/terminal state weights
+
+
+class GoalMPCSolution(NamedTuple):
+    speed: torch.Tensor  # (...,) reference ABI first-step outputs
+    steer: torch.Tensor  # (...,)
+    controls: torch.Tensor  # (..., T, 2) full [accel, steer] plan
+    r_prim: torch.Tensor  # (...,) final primal residual (inf norm)
+    r_dual: torch.Tensor  # (...,)
+    converged: torch.Tensor  # (...,) bool
+
+
+@functools.lru_cache(maxsize=16)
+def _constants(cfg: GoalMPCConfig, dtype, device) -> dict:
+    """The parts of a family that do not depend on v_car, built on the host
+    once per (cfg, dtype, device) and copied to the device once: a family
+    built afterwards launches only device kernels, with no host copy that
+    would wait for the device."""
+    T, nx, nu = cfg.horizon, 4, 2
+    n = T * nu
+    # control-difference operator D: (T-1)*nu rows of u_{k+1} - u_k
+    D = np.zeros(((T - 1) * nu, n))
+    steer_rows = np.zeros((T - 1, n))
+    for k in range(T - 1):
+        for c in range(nu):
+            D[k * nu + c, (k + 1) * nu + c] = 1.0
+            D[k * nu + c, k * nu + c] = -1.0
+        steer_rows[k, (k + 1) * nu + 1] = 1.0
+        steer_rows[k, k * nu + 1] = -1.0
+    vel_sel = np.zeros((T, T * nx))
+    for k in range(T):
+        vel_sel[k, k * nx + 2] = 1.0
+    host = dict(
+        Ad0=np.array([[1, 0, cfg.dt, 0], [0, 1, 0, 0], [0, 0, 1, 0],
+                      [0, 0, 0, 1]], np.float64),
+        dt=np.float64(cfg.dt), D=D, steer_rows=steer_rows, vel_sel=vel_sel,
+        # stage weights: x_1..x_{T-1} get Qk, x_T gets Qfk (the x_0 term is
+        # a constant in U and drops out of the argmin)
+        qw=np.concatenate([np.tile(cfg.q_state, T - 1), cfg.qf_state]),
+        r_diag=np.tile([cfg.r_accel, cfg.r_steer], T),
+        rd_diag=np.tile([cfg.rd_accel, cfg.rd_steer], T - 1),
+        u_lo=np.tile([-cfg.max_accel, -cfg.max_steer], T),
+        u_hi=np.tile([cfg.max_accel, cfg.max_steer], T),
+        d_bound=np.full(T - 1, cfg.max_dsteer * cfg.dt),
+        v_lo=np.full(T, cfg.min_speed), v_hi=np.full(T, cfg.max_speed),
+        eye_x=np.eye(nx), eye_u=np.eye(n))
+    return {k: torch.as_tensor(a, dtype=dtype).to(device)
+            for k, a in host.items()}
+
+
+def _as_speed(v_car, dtype, device) -> torch.Tensor:
+    """v_car as a tensor; a Python number is filled on the device (no host
+    copy)."""
+    if torch.is_tensor(v_car) or isinstance(v_car, np.ndarray):
+        return torch.as_tensor(v_car, dtype=dtype, device=device)
+    return torch.full((), float(v_car), dtype=dtype, device=device)
+
+
+def condensed_family(v_car, cfg: GoalMPCConfig = GoalMPCConfig(),
+                     dtype=torch.float32, device=None) -> GoalQPFamily:
+    """The condensed QP family at linearization speed ``v_car``: a scalar,
+    or a tensor of any batch shape (one family per entry)."""
+    if torch.is_tensor(v_car) and device is None:
+        device = v_car.device
+    device = resolve_device(device)
+    c = _constants(cfg, dtype, device)
+    T, nx, nu = cfg.horizon, 4, 2
+    n = T * nu
+    v = _as_speed(v_car, dtype, device)
+    batch = v.shape
+    dt = c["dt"]
+
+    # Ad/Bd at (v, yaw=0, steer=0); the affine term vanishes there
+    Ad = c["Ad0"].expand(batch + (nx, nx)).clone()
+    Ad[..., 1, 3] = dt * v  # dy/dyaw at yaw=0
+    Bd = torch.zeros(batch + (nx, nu), dtype=dtype, device=device)
+    Bd[..., 2, 0] = dt
+    Bd[..., 3, 1] = dt * v / cfg.wheelbase
+
+    # prediction: X = Sx x0 + Su U, X stacks x_1..x_T
+    powers = [c["eye_x"].expand(batch + (nx, nx))]
+    for _ in range(T):
+        powers.append(Ad @ powers[-1])
+    Sx = torch.cat(powers[1:], dim=-2)  # (..., T*nx, nx)
+    Su = torch.zeros(batch + (T * nx, n), dtype=dtype, device=device)
+    for k in range(1, T + 1):
+        for j in range(k):
+            Su[..., (k - 1) * nx:k * nx, j * nu:(j + 1) * nu] = (
+                powers[k - 1 - j] @ Bd)
+
+    qw, D = c["qw"], c["D"]
+    W_Su = qw[:, None] * Su
+    P = (Su.transpose(-1, -2) @ W_Su + torch.diag(c["r_diag"])
+         + D.T @ (c["rd_diag"][:, None] * D))
+
+    # constraints: [controls box; steer-rate rows; velocity rows]
+    vel_rows = c["vel_sel"] @ Su  # v_k - v_car as a function of U
+    A_con = torch.cat([c["eye_u"].expand(batch + (n, n)),
+                       c["steer_rows"].expand(batch + (T - 1, n)), vel_rows],
+                      dim=-2)
+    lo = torch.cat([c["u_lo"].expand(batch + (n,)),
+                    (-c["d_bound"]).expand(batch + (T - 1,)),
+                    c["v_lo"] - v[..., None]], dim=-1)
+    hi = torch.cat([c["u_hi"].expand(batch + (n,)),
+                    c["d_bound"].expand(batch + (T - 1,)),
+                    c["v_hi"] - v[..., None]], dim=-1)
+
+    # unit constraint rows: mixed row scales (unit control boxes vs
+    # ~dt*sqrt(k) velocity rows) wreck the single-rho ADMM
+    row_norm = torch.sqrt(torch.sum(A_con * A_con, dim=-1))
+    A_con = A_con / row_norm[..., None]
+    lo = lo / row_norm
+    hi = hi / row_norm
+
+    x0 = torch.zeros(batch + (nx,), dtype=dtype, device=device)
+    x0[..., 2] = v
+    x_free = (Sx @ x0[..., None])[..., 0]
+    return GoalQPFamily(P, A_con, lo, hi, Su, x_free,
+                        qw.expand(batch + qw.shape))
+
+
+def _goal_vector(fam: GoalQPFamily, goals, cfg: GoalMPCConfig):
+    """Linear cost term q(goal) = Su' W (x_free - g_rep): goals of shape
+    ``batch + (G, 4)``, columns (x_g, y_g, v_g, t_g), -> ``batch + (G, n)``."""
+    g_rep = goals.repeat((1,) * (goals.ndim - 1) + (cfg.horizon,))
+    resid = fam.x_free[..., None, :] - g_rep
+    return (fam.qw[..., None, :] * resid) @ fam.Su
+
+
+def _family_operands(v_car, goals, cfg, sigma):
+    """Family matrices, the speed-scaled rho, the KKT inverse and the goal
+    rows' linear terms, for v_car of shape ``batch`` and goals of shape
+    ``batch + (G, 4)``.
+
+    rho law: in unit-row constraint coordinates with over-relaxation
+    alpha = 1.6, rho grows with the linearization speed as max(1, |v|/2)
+    (P's yaw-coupling curvature scales ~v^2).
+    """
+    dtype, device = goals.dtype, goals.device
+    fam = condensed_family(v_car, cfg, dtype, device)
+    v = _as_speed(v_car, dtype, device)
+    rho = torch.clamp(v.abs() * 0.5, min=1.0)
+    eye = _constants(cfg, dtype, device)["eye_u"]
+    kkt = fam.P + sigma * eye + rho[..., None, None] * (
+        fam.A_con.transpose(-1, -2) @ fam.A_con)
+    # PD by construction. No call here waits for the device: the _ex form
+    # skips cholesky's check, and two triangular solves give
+    # kinv = L^-T L^-1.
+    chol, _ = torch.linalg.cholesky_ex(kkt)
+    linv = torch.linalg.solve_triangular(chol, eye.expand(kkt.shape),
+                                         upper=False)
+    kinv = torch.linalg.solve_triangular(chol.transpose(-1, -2), linv,
+                                         upper=True)
+    q = _goal_vector(fam, goals, cfg)
+    return fam, rho, kinv, q
+
+
+def _solve_families(v, goals, cfg, iters, sigma, tol) -> GoalMPCSolution:
+    """v (F,), goals (F, G, 4) -> a solution of shape (F, G)."""
+    fam, rho, kinv, q = _family_operands(v, goals, cfg, sigma)
+    x, r_prim, r_dual = admm_solve(q.contiguous(), fam.A_con.contiguous(),
+                                   kinv.contiguous(), fam.lo.contiguous(),
+                                   fam.hi.contiguous(), rho.contiguous(),
+                                   iters=iters, sigma=sigma)
+    converged = (r_prim < tol) & (r_dual < tol)
+    controls = x.reshape(x.shape[:2] + (cfg.horizon, 2))
+    speed = v[:, None] + controls[..., 0, 0] * cfg.dt
+    steer = controls[..., 0, 1]
+    return GoalMPCSolution(speed, steer, controls, r_prim, r_dual, converged)
+
+
+def _as_input(a, device) -> torch.Tensor:
+    """A tensor input stays where it is unless ``device`` names a place;
+    anything else goes to ``resolve_device(device)`` (the card by
+    default)."""
+    if torch.is_tensor(a) and device is None:
+        return a
+    return torch.as_tensor(a, device=resolve_device(device))
+
+
+def solve_goal_family(v_car, goals, cfg: GoalMPCConfig = GoalMPCConfig(),
+                      iters: int = 300, sigma: float = 1e-6,
+                      tol: float = 2e-3, device=None) -> GoalMPCSolution:
+    """Solve every goal in ``goals`` (G, 4) at linearization speed ``v_car``.
+
+    One Cholesky of the 16x16 ADMM KKT for the whole family, then ``iters``
+    fixed ADMM sweeps (one kernel launch on the card); ``converged`` reports
+    the final inf-norm residuals against ``tol``. Runs in ``goals``' dtype.
+    """
+    goals = _as_input(goals, device)
+    v = _as_speed(v_car, goals.dtype, goals.device).reshape(1)
+    sol = _solve_families(v, goals[None], cfg, iters, sigma, tol)
+    return GoalMPCSolution(*(t[0] for t in sol))
+
+
+def solve_goal_mpc(inputs, cfg: GoalMPCConfig = GoalMPCConfig(),
+                   iters: int = 300, device=None) -> GoalMPCSolution:
+    """Reference-ABI row solve: inputs (N, 5) columns
+    (v_car, x_goal, y_goal, t_goal, v_goal), each row with its own
+    linearization: N one-goal families, solved by one ADMM launch."""
+    inputs = torch.atleast_2d(_as_input(inputs, device))
+    goals = torch.stack([inputs[:, 1], inputs[:, 2], inputs[:, 4],
+                         inputs[:, 3]], dim=-1)  # (x_g, y_g, v_g, t_g)
+    sol = _solve_families(inputs[:, 0], goals[:, None, :], cfg, iters,
+                          1e-6, 2e-3)
+    return GoalMPCSolution(*(t[:, 0] for t in sol))
+
+
+def solve_goal_lattice(v_car, goals, cfg: GoalMPCConfig = GoalMPCConfig(),
+                       iters: int = 1200, batch_per_device: int = 262144,
+                       device=None) -> dict:
+    """One family's goal block (numpy (G, 4)) solved in chunks of
+    ``batch_per_device`` goals on one device, with each chunk's copy back
+    to the host overlapped with the next chunk's solve. Returns the table
+    columns as numpy arrays: {speed, steer, converged} (G,); the full
+    control plans stay on the device."""
+    from irbfn_tpu_torch.parallel.datagen import solve_lattice
+
+    def fn(g, v):
+        sol = solve_goal_family(v, g, cfg, iters=iters)
+        return {"speed": sol.speed, "steer": sol.steer,
+                "converged": sol.converged}
+
+    return solve_lattice(fn, goals, batch_per_device=batch_per_device,
+                         args=(float(v_car),), device=device)

@@ -88,7 +88,8 @@ def params_from_jax(tree: dict, config: dict) -> dict:
 def load_model(config_json: str, params_npz: str, device=None,
                dtype=torch.float32):
     """Rebuild ``(model, config)`` from a config JSON and a params npz
-    written by ``scripts/export_torch_ckpt.py``."""
+    written by ``scripts/export_torch_ckpt.py``, on ``device`` (None: the
+    card)."""
     config = load_config(config_json)
     with np.load(params_npz) as z:
         tree = unflatten_tree({k: z[k] for k in z.files})

@@ -7,8 +7,8 @@ the npz layout). Writes to ``irbfn_tpu_torch/assets/``:
 
 - ``<run>.npz``  — the flax parameter tree, keys like ``params/core/centers``
 - ``<run>.json`` — the YAML config as JSON
-- ``<run>_golden.npz`` (``--golden``) — what ``chip_smoke.py`` holds the
-  port against on the card:
+- with ``--golden``, what ``chip_smoke.py`` holds the port against on the
+  card. For a Frenet net, ``<run>_golden.npz``:
     * ``x``: 1024 net inputs drawn with numpy inside the config's
       ``input_bounds``, and ``forward_f64``: the flax forward on them in f64;
     * ``plan_in`` ([s, ey, epsi, delta, vx, vy, wz], a third of the rows
@@ -21,8 +21,25 @@ the npz layout). Writes to ``irbfn_tpu_torch/assets/``:
       start noise 0.01 * ``loop_noise``), run by the JAX package in f32:
       per-lane laps, done and mean |ey|.
 
+  For the goal-MPC net (``goal_mpc_pr``), ``goal_mpc_golden.npz``:
+    * ``lat_*``: 256 seeded rows of each of the 19 v_car families of the
+      reference goal lattice (``lat_idx`` into the family's goal block,
+      ``lat_goals`` in solver order (x, y, v, t)) and the JAX
+      ``solve_goal_family`` results on them at 600 sweeps, in f32 and f64
+      (speed, steer, controls, r_prim, r_dual, converged);
+    * ``net_x`` and ``net_forward_f64``: 1024 net inputs inside the
+      config's bounds and the flax forward on them in f64;
+    * ``plan_pose`` (x, y, theta, v: 1024 seeded poses near the oval's
+      raceline) and ``plan_{solver,net}_{speed,steer}_{f32,f64}``: the
+      JAX ``GoalMPCPlanner.plan_batch`` outputs of both modes;
+    * ``loop_{solver,net}_*``: the goal-MPC closed loops at the
+      ``eval_closed_loop.py`` defaults (the sweep above, in the speed
+      action mode), run by the JAX package in f32: per-lane laps, done,
+      final progress and mean |ey|.
+
 Usage (from the repo root):
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run frenet_wide_pr1 --golden
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run goal_mpc_pr --golden
 """
 
 import argparse
@@ -42,7 +59,9 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 
 from irbfn_tpu.dynamics.params import VehicleParams, f1tenth_params  # noqa: E402
-from irbfn_tpu.planning import IRBFNFrenetPlanner  # noqa: E402
+from irbfn_tpu.parallel import GridSpec, build_lattice  # noqa: E402
+from irbfn_tpu.planning import GoalMPCPlanner, IRBFNFrenetPlanner  # noqa: E402
+from irbfn_tpu.solvers.goal_mpc import solve_goal_family  # noqa: E402
 from irbfn_tpu.sim import TrackEnv, deviation_metrics, oval_track  # noqa: E402
 from irbfn_tpu.train import input_bounds_from_config, load_model  # noqa: E402
 from irbfn_tpu_torch.train import flatten_tree  # noqa: E402  (the npz format)
@@ -80,7 +99,7 @@ def draw_inputs(bounds, track_length, rng):
     return x, np.concatenate([s, st], axis=1).astype(np.float32)
 
 
-def golden(model, variables, config):
+def frenet_golden(model, variables, config):
     out = {}
     bounds = input_bounds_from_config(config)
     track = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
@@ -99,24 +118,7 @@ def golden(model, variables, config):
 
     # the closed-loop sweep, in f32 as the eval script runs it
     jax.config.update("jax_enable_x64", False)
-    mu, cs = sweep_lanes()
-    B = mu.size
-    base = f1tenth_params()
-    full = lambda v: jnp.full((B,), v, jnp.float32)  # noqa: E731
-    params_b = VehicleParams(
-        mu=jnp.asarray(mu, jnp.float32), m=full(base.m), I=full(base.I),
-        lf=full(base.lf), lr=full(base.lr), C_Sf=jnp.asarray(cs, jnp.float32),
-        C_Sr=jnp.asarray(cs, jnp.float32), h=full(base.h), dt=full(0.01),
-        sv_max=full(base.sv_max), a_max=full(base.a_max),
-        s_max=full(base.s_max), v_max=full(base.v_max))
-    env = TrackEnv(track, params_b, half_width=LOOP["half_width"])
-    noise = np.random.default_rng(LOOP["seed"]).standard_normal(
-        (B, 3)).astype(np.float32)
-    sim0 = env.reset(s0=jnp.zeros(B), speed0=1.0, batch_shape=(B,))
-    # reset's pose noise, from numpy draws instead of a jax key
-    dn = LOOP["noise_scale"] * jnp.asarray(noise)
-    xs = sim0.x.at[:, 0].add(dn[:, 0]).at[:, 1].add(dn[:, 1])
-    sim0 = sim0._replace(x=xs.at[:, 4].add(dn[:, 2]))
+    env, sim0, noise, mu, cs = sweep_env(track, "accl")
     params32 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), variables)
     planner32 = IRBFNFrenetPlanner(model, params32, track, use_pallas=False,
                                    input_bounds=bounds)
@@ -127,31 +129,151 @@ def golden(model, variables, config):
                                  obs.ang_vel_z)
         return jnp.stack([r.accel, r.steer_vel], axis=-1)
 
+    loop = run_sweep(env, sim0, policy)
+    jax.config.update("jax_enable_x64", True)
+    out.update(loop_noise=noise, loop_mu=mu.astype(np.float32),
+               loop_cs=cs.astype(np.float32),
+               **{f"loop_{k}": v for k, v in loop.items()})
+    return out
+
+
+def sweep_env(track, control_mode):
+    """The closed-loop sweep's env and noisy start, in f32: (env, sim0,
+    noise, mu, cs)."""
+    mu, cs = sweep_lanes()
+    B = mu.size
+    base = f1tenth_params()
+    full = lambda v: jnp.full((B,), v, jnp.float32)  # noqa: E731
+    params_b = VehicleParams(
+        mu=jnp.asarray(mu, jnp.float32), m=full(base.m), I=full(base.I),
+        lf=full(base.lf), lr=full(base.lr), C_Sf=jnp.asarray(cs, jnp.float32),
+        C_Sr=jnp.asarray(cs, jnp.float32), h=full(base.h), dt=full(0.01),
+        sv_max=full(base.sv_max), a_max=full(base.a_max),
+        s_max=full(base.s_max), v_max=full(base.v_max))
+    env = TrackEnv(track, params_b, half_width=LOOP["half_width"],
+                   control_mode=control_mode)
+    noise = np.random.default_rng(LOOP["seed"]).standard_normal(
+        (B, 3)).astype(np.float32)
+    sim0 = env.reset(s0=jnp.zeros(B), speed0=1.0, batch_shape=(B,))
+    # reset's pose noise, from numpy draws instead of a jax key
+    dn = LOOP["noise_scale"] * jnp.asarray(noise)
+    xs = sim0.x.at[:, 0].add(dn[:, 0]).at[:, 1].add(dn[:, 1])
+    sim0 = sim0._replace(x=xs.at[:, 4].add(dn[:, 2]))
+    return env, sim0, noise, mu, cs
+
+
+def run_sweep(env, sim0, policy) -> dict:
+    """Roll the sweep out; per-lane laps, done, final progress, mean |ey|."""
+    B = sim0.s.shape[0]
     t0 = time.perf_counter()
     final, traj = env.rollout(sim0, policy, n_steps=LOOP["n_steps"])
     ey_mean, _ = deviation_metrics(traj)
     jax.block_until_ready(ey_mean)
+    out = dict(laps=np.asarray(final.laps), done=np.asarray(final.done),
+               s=np.asarray(final.s), ey_mean=np.asarray(ey_mean))
     print(f"closed loop: {B} lanes x {LOOP['n_steps']} steps in "
-          f"{time.perf_counter() - t0:.1f} s (JAX, CPU)")
+          f"{time.perf_counter() - t0:.1f} s (JAX, CPU); completed "
+          f"{int((~out['done']).sum())}/{B}, laps>=1 "
+          f"{int((out['laps'] >= 1).sum())}, mean|ey| over lanes "
+          f"{float(np.nanmean(out['ey_mean'])):.4f}", flush=True)
+    return out
+
+
+# the reference goal lattice: scripts/gen_goal_mpc_table.py's default grid
+GOAL_GRID = (GridSpec("v_car", -1.0, 8.0, 19),
+             GridSpec("x_goal", -1.2, 4.0, 53),
+             GridSpec("y_goal", 0.0, 4.0, 41),
+             GridSpec("t_goal", -3.14, 3.14, 64),
+             GridSpec("v_goal", -1.0, 8.0, 19))
+N_LATTICE_ROWS = 256  # per family
+
+
+def _solutions(sol, suffix) -> dict:
+    return {f"{k}_{suffix}": np.asarray(v) for k, v in sol._asdict().items()}
+
+
+def goal_golden(model, variables, config):
+    out = {}
+    rng = np.random.default_rng(0)
+    # (a) seeded rows of every family of the reference lattice
+    v_vals = GOAL_GRID[0].values()
+    goals_raw = build_lattice(GOAL_GRID[1:], dtype=np.float32)  # x,y,t,v
+    idx = np.stack([np.sort(rng.choice(goals_raw.shape[0], N_LATTICE_ROWS,
+                                       replace=False)) for _ in v_vals])
+    goals = goals_raw[idx][..., [0, 1, 3, 2]]  # solver order x,y,v,t
+    out.update(lat_v=v_vals.astype(np.float32), lat_idx=idx, lat_goals=goals)
+    for suffix, dt, x64 in (("f64", jnp.float64, True),
+                            ("f32", jnp.float32, False)):
+        with jax.enable_x64(x64):
+            sols = [solve_goal_family(jnp.asarray(v, dt),
+                                      jnp.asarray(g, dt), iters=600)
+                    for v, g in zip(v_vals, goals)]
+            sol = jax.tree.map(lambda *a: np.stack(a), *sols)
+        out.update({f"lat_{k}": v for k, v in _solutions(sol, suffix).items()})
+    print(f"lattice rows: {idx.size}, converged f64 "
+          f"{out['lat_converged_f64'].mean():.4f} f32 "
+          f"{out['lat_converged_f32'].mean():.4f}", flush=True)
+
+    # net inputs inside the trained bounds, and the f64 forward
+    bounds = input_bounds_from_config(config)
+    out["net_x"] = rng.uniform(bounds[:, 0], bounds[:, 1],
+                               (N_GOLDEN, bounds.shape[0])).astype(np.float32)
+    params = {"params": variables["params"]}
+    params64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
+    out["net_forward_f64"] = np.asarray(model.apply(
+        params64, jnp.asarray(out["net_x"], jnp.float64)))
+
+    # (c) plan_batch of both modes on seeded poses near the raceline
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
+    n = N_GOLDEN
+    s = rng.uniform(0.0, float(track.raceline.length), n)
+    x, y, th = track.frenet_to_cartesian(jnp.asarray(s),
+                                         jnp.asarray(rng.uniform(-1, 1, n)),
+                                         jnp.asarray(rng.uniform(-.5, .5, n)))
+    pose = np.stack([np.asarray(x), np.asarray(y), np.asarray(th),
+                     rng.uniform(0.5, 6.0, n)], axis=-1)
+    out["plan_pose"] = pose
+    for suffix, dt, x64 in (("f64", jnp.float64, True),
+                            ("f32", jnp.float32, False)):
+        with jax.enable_x64(x64):
+            prm = jax.tree.map(lambda a: jnp.asarray(a, dt), params)
+            planners = {"solver": GoalMPCPlanner(track),
+                        "net": GoalMPCPlanner(track, model, prm)}
+            for mode, planner in planners.items():
+                speed, steer = planner.plan_batch(
+                    *jnp.asarray(pose, dt).T)
+                out[f"plan_{mode}_speed_{suffix}"] = np.asarray(speed)
+                out[f"plan_{mode}_steer_{suffix}"] = np.asarray(steer)
+
+    # (b) both closed loops, in f32 as the eval script runs them
+    jax.config.update("jax_enable_x64", False)
+    env, sim0, noise, mu, cs = sweep_env(track, "speed")
+    params32 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), params)
+    for mode, planner in (("solver", GoalMPCPlanner(track)),
+                          ("net", GoalMPCPlanner(track, model, params32))):
+        def policy(obs, planner=planner):
+            speed, steer = planner.plan_batch(obs.pose_x, obs.pose_y,
+                                              obs.pose_theta,
+                                              obs.linear_vel_x)
+            return jnp.stack([speed, steer], axis=-1)
+
+        loop = run_sweep(env, sim0, policy)
+        out.update({f"loop_{mode}_{k}": v for k, v in loop.items()})
     jax.config.update("jax_enable_x64", True)
     out.update(loop_noise=noise, loop_mu=mu.astype(np.float32),
-               loop_cs=cs.astype(np.float32),
-               loop_laps=np.asarray(final.laps),
-               loop_done=np.asarray(final.done),
-               loop_s=np.asarray(final.s),
-               loop_ey_mean=np.asarray(ey_mean))
-    print(f"completed {int((~out['loop_done']).sum())}/{B}, "
-          f"laps>=1 {int((out['loop_laps'] >= 1).sum())}, mean|ey| over "
-          f"lanes {float(np.nanmean(out['loop_ey_mean'])):.4f}")
+               loop_cs=cs.astype(np.float32))
     return out
+
+
+GOLDENS = {"goal_mpc_pr": (goal_golden, "goal_mpc_golden.npz")}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--run", default="frenet_wide_pr1")
     ap.add_argument("--golden", action="store_true",
-                    help="also write <run>_golden.npz (runs the 1000-lane "
-                         "closed loop on the CPU, about a minute)")
+                    help="also write the run's goldens (runs the 1000-lane "
+                         "closed loops on the CPU: minutes)")
     ap.add_argument("--out_dir", default=ASSETS)
     args = ap.parse_args()
     model, variables, config = load_model(f"configs/{args.run}.yaml",
@@ -163,10 +285,11 @@ def main():
         json.dump(config, f, indent=1, sort_keys=True)
     print(f"wrote {args.run}.npz and {args.run}.json to {args.out_dir}")
     if args.golden:
-        np.savez_compressed(
-            os.path.join(args.out_dir, f"{args.run}_golden.npz"),
-            **golden(model, variables, config))
-        print(f"wrote {args.run}_golden.npz")
+        fn, name = GOLDENS.get(args.run,
+                               (frenet_golden, f"{args.run}_golden.npz"))
+        np.savez_compressed(os.path.join(args.out_dir, name),
+                            **fn(model, variables, config))
+        print(f"wrote {name}")
 
 
 if __name__ == "__main__":

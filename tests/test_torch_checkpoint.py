@@ -73,7 +73,7 @@ def test_torch_assets_match_orbax(orbax_run):
     # makes of the orbax tree
     tree = unflatten_tree(flat)
     assert jax.tree.structure(tree) == jax.tree.structure(variables)
-    model, _ = load_model(ASSET + ".json", ASSET + ".npz")
+    model, _ = load_model(ASSET + ".json", ASSET + ".npz", device="cpu")
     for k, v in params_from_jax(variables, config).items():
         assert torch.equal(model.state_dict()[k], v), k
 
@@ -88,7 +88,7 @@ def test_torch_params_from_jax_forward_equals_flax(orbax_run):
     params64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
     ref = np.asarray(jmodel.apply(params64, jnp.asarray(x[:256])))
     model, _ = load_model(ASSET + ".json", ASSET + ".npz",
-                          dtype=torch.float64)
+                          dtype=torch.float64, device="cpu")
     with torch.no_grad():
         out = model(torch.from_numpy(x[:256])).numpy()
     np.testing.assert_allclose(out, ref, rtol=0.0, atol=1e-9)
@@ -110,7 +110,7 @@ def test_torch_params_from_jax_other_checkpoints(run):
                                             f"ckpts/{run}")
     variables = jax.tree.map(lambda a: np.asarray(a, np.float64),
                              {"params": variables["params"]})
-    model = from_config(config, dtype=torch.float64)
+    model = from_config(config, dtype=torch.float64, device="cpu")
     model.load_state_dict(params_from_jax(variables, config))
     b = input_bounds_from_config(config)
     b = np.where(np.isfinite(b), b, np.array([-1.0, 1.0]))

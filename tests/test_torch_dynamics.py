@@ -63,11 +63,12 @@ def _close(t, j):
 def test_torch_params_constants():
     for name in ("f1tenth_params", "fullscale_params"):
         j = getattr(jpar, name)(mu=0.7, cs=4.0, dt=0.05, dtype=jnp.float64)
-        t = getattr(tpar, name)(mu=0.7, cs=4.0, dt=0.05, dtype=torch.float64)
+        t = getattr(tpar, name)(mu=0.7, cs=4.0, dt=0.05, dtype=torch.float64,
+                                device="cpu")
         _close(t.to_vector(), j.to_vector())
         assert float(t.wheelbase) == float(j.wheelbase)
     assert tpar.G == jpar.G
-    p = tpar.f1tenth_params().to(dtype=torch.float64)
+    p = tpar.f1tenth_params(device="cpu").to(dtype=torch.float64)
     assert p.dtype == torch.float64 and p.mu.dtype == torch.float64
 
 
@@ -129,7 +130,7 @@ def test_torch_frenet_rollout(integrator):
     controls = np.stack([rng.uniform(-9, 9, (B, 5)),
                          rng.uniform(-3, 3, (B, 5))], axis=-1)
     pj = jpar.f1tenth_params(dtype=jnp.float64)
-    pt = tpar.f1tenth_params(dtype=torch.float64)
+    pt = tpar.f1tenth_params(dtype=torch.float64, device="cpu")
     j = jfr.frenet_rollout(jnp.asarray(x), jnp.asarray(controls),
                            jnp.asarray(curv), pj, blend="ls",
                            integrator=integrator)

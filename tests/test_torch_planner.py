@@ -15,6 +15,8 @@ The flagship ``frenet_wide_pr1`` net is loaded through orbax
   every lane's laps and done flag are identical.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,13 +25,16 @@ import torch
 
 from irbfn_tpu.dynamics import VehicleParams as JParams
 from irbfn_tpu.dynamics import f1tenth_params as jf1tenth
+from irbfn_tpu.planning import GoalMPCPlanner as JGoalPlanner
 from irbfn_tpu.planning import IRBFNFrenetPlanner as JPlanner
+from irbfn_tpu.planning.planner import _lookahead_goal as jlookahead
 from irbfn_tpu.sim import TrackEnv as JEnv
 from irbfn_tpu.sim import oval_track as joval
 from irbfn_tpu.train import input_bounds_from_config, load_model
 from irbfn_tpu_torch.dynamics import VehicleParams
 from irbfn_tpu_torch.models import from_config
-from irbfn_tpu_torch.planning import IRBFNFrenetPlanner
+from irbfn_tpu_torch.planning import GoalMPCPlanner, IRBFNFrenetPlanner
+from irbfn_tpu_torch.planning.planner import _lookahead_goal
 from irbfn_tpu_torch.sim import TrackEnv, deviation_metrics, oval_track
 from irbfn_tpu_torch.train import params_from_jax
 
@@ -45,7 +50,7 @@ def flagship():
     variables = jax.tree.map(np.asarray, {"params": variables["params"]})
     nets, jparams = {}, {}
     for name, (ndt, _, tdt) in DTYPES.items():
-        net = from_config(config, dtype=tdt)
+        net = from_config(config, dtype=tdt, device="cpu")
         net.load_state_dict(params_from_jax(variables, config))
         nets[name] = net
         # f64 runs get f64 weights on the JAX side too: f32 weights would
@@ -76,7 +81,7 @@ def _plan_inputs(rng, n, length):
 def test_torch_plan_batch_matches_jax(flagship, name):
     model, variables, bounds, nets = flagship
     ndt, jdt, tdt = DTYPES[name]
-    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
+    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
     rng = np.random.default_rng(0)
     x = _plan_inputs(rng, 240, float(tt.raceline.length)).astype(ndt)
     # mirrored rows, and rows the clamp moves, are both present
@@ -151,7 +156,7 @@ def test_torch_closed_loop_matches_jax(flagship, name):
         aj, fj = np.asarray(aj).reshape(N, B, 2), jax.tree.map(np.asarray,
                                                                  fj)
 
-    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
+    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
     te = TrackEnv(tt, VehicleParams.from_vector(torch.from_numpy(vec)),
                   half_width=2.0)
     tp = IRBFNFrenetPlanner(nets[name], tt, dtype=tdt, input_bounds=bounds)
@@ -175,3 +180,112 @@ def test_torch_closed_loop_matches_jax(flagship, name):
         ey_t = deviation_metrics(trt)[0].numpy()
         ey_j = np.abs(np.asarray(oj.ey)).mean(0)
         np.testing.assert_allclose(ey_t, ey_j, rtol=0.0, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def goal_net():
+    """The committed goal-MPC net: JAX model + f64 params, and the port's
+    f64 copy."""
+    model, variables, config = load_model("configs/goal_mpc_pr.yaml",
+                                          "ckpts/goal_mpc_pr")
+    variables = jax.tree.map(np.asarray, {"params": variables["params"]})
+    net = from_config(config, dtype=torch.float64, device="cpu")
+    net.load_state_dict(params_from_jax(variables, config))
+    return model, jax.tree.map(lambda a: a.astype(np.float64), variables), net
+
+
+def _poses(rng, track, n):
+    """(x, y, theta, v): poses within 1 m and 0.5 rad of the raceline."""
+    s = rng.uniform(0.0, float(track.raceline.length), n)
+    x, y, th = track.frenet_to_cartesian(
+        *(torch.from_numpy(a) for a in (s, rng.uniform(-1, 1, n),
+                                        rng.uniform(-0.5, 0.5, n))))
+    return np.stack([x.numpy(), y.numpy(), th.numpy(),
+                     rng.uniform(0.0, 6.0, n)], axis=-1)
+
+
+def test_torch_lookahead_goal_f64():
+    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
+    jt = joval(30.0, 15.0, n_samples=512, speed=3.0)
+    pose = _poses(np.random.default_rng(10), tt, 200)
+    pose[:5, 3] = [0.0, 0.05, -1.0, 0.1, 7.0]  # min-speed / min-lookahead
+    for ht in (0.4, 0.5):
+        gj = jlookahead(jnp.stack([jt.raceline.xs, jt.raceline.ys], -1),
+                        jt.raceline.vxs, jt.raceline.yaws,
+                        *jnp.asarray(pose[:, [0, 1, 3]]).T, horizon_time=ht)
+        rl = tt.raceline
+        gt = _lookahead_goal(torch.stack([rl.xs, rl.ys], -1), rl.vxs,
+                             rl.yaws, *torch.from_numpy(pose[:, [0, 1, 3]]).T,
+                             horizon_time=ht)
+        for a, b in zip(gt, gj):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("mode", ["solver", "net"])
+def test_torch_goal_planner_plan_batch_matches_jax(goal_net, mode):
+    model, params64, net = goal_net
+    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
+    jt = joval(30.0, 15.0, n_samples=512, speed=3.0)
+    pose = _poses(np.random.default_rng(11), tt, 96)
+    if mode == "solver":
+        jp, tp = JGoalPlanner(jt, iters=300), GoalMPCPlanner(tt, iters=300)
+    else:
+        jp, tp = JGoalPlanner(jt, model, params64), GoalMPCPlanner(tt, net)
+    rj = jp.plan_batch(*jnp.asarray(pose).T)
+    rt = tp.plan_batch(*torch.from_numpy(pose).T)
+    # both halves of the y >= 0 mirror occur
+    assert 20 < int((np.asarray(rj[1]) < 0).sum()) < 76
+    for a, b in zip(rt, rj):
+        assert a.dtype == torch.float64 and a.shape == (96,)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0.0,
+                                   atol=1e-10)
+    obs = SimpleNamespace(**dict(zip(  # one car's observation
+        ("pose_x", "pose_y", "pose_theta", "linear_vel_x"),
+        torch.from_numpy(pose[3]))))
+    np.testing.assert_allclose([float(v) for v in tp.plan(obs)],
+                               [float(rt[0][3]), float(rt[1][3])], atol=1e-12)
+
+
+def test_torch_goal_planner_closed_loop_matches_jax():
+    """Four lanes, 120 control steps of the solver-backed planner through
+    the speed action mode (tests/test_goal_mpc.py::
+    test_goal_mpc_planner_closed_loop_oval's setting), in f64: the same
+    lanes finish with the same laps, and progress and mean |ey| agree to
+    the f32 raceline's last place grown over 1,200 PID substeps."""
+    B, N = 4, 120
+    vec = _lanes(np.float64)[[0, 3, 5, 8]]
+    noise = np.random.default_rng(12).standard_normal((B, 3))
+    jt = joval(n_samples=256, speed=2.5)
+    je = JEnv(jt, JParams.from_vector(jnp.asarray(vec)), half_width=2.0,
+              control_mode="speed")
+    sim = je.reset(s0=jnp.zeros(B), speed0=1.0, batch_shape=(B,))
+    dn = 0.01 * jnp.asarray(noise)
+    sim = sim._replace(x=sim.x.at[:, 0].add(dn[:, 0]).at[:, 1].add(
+        dn[:, 1]).at[:, 4].add(dn[:, 2]))
+    jp = JGoalPlanner(jt, iters=300)
+
+    def jpolicy(o):
+        return jnp.stack(jp.plan_batch(o.pose_x, o.pose_y, o.pose_theta,
+                                       o.linear_vel_x), axis=-1)
+
+    fj, trj = je.rollout(sim, jpolicy, N)
+    tt = oval_track(n_samples=256, speed=2.5, device="cpu")
+    te = TrackEnv(tt, VehicleParams.from_vector(torch.from_numpy(vec)),
+                  half_width=2.0, control_mode="speed")
+    tp = GoalMPCPlanner(tt, iters=300)
+
+    def tpolicy(o):
+        return torch.stack(tp.plan_batch(o.pose_x, o.pose_y, o.pose_theta,
+                                         o.linear_vel_x), dim=-1)
+
+    ft, trt = te.rollout(te.reset(speed0=1.0, batch_shape=(B,),
+                                  noise=torch.from_numpy(noise),
+                                  noise_scale=0.01), tpolicy, N)
+    np.testing.assert_array_equal(ft.done.numpy(), np.asarray(fj.done))
+    np.testing.assert_array_equal(ft.laps.numpy(), np.asarray(fj.laps))
+    assert not ft.done.any() and (ft.s.numpy() > 20.0).all()
+    np.testing.assert_allclose(ft.s.numpy(), np.asarray(fj.s), atol=1e-6)
+    ey_t = deviation_metrics(trt)[0].numpy()
+    np.testing.assert_allclose(ey_t, np.abs(np.asarray(trj.obs.ey)).mean(0),
+                               atol=1e-7)
+    assert ey_t.mean() < 0.15

@@ -48,7 +48,7 @@ def _port(model, params, dtype=torch.float32):
             "lower_bounds", "upper_bounds", "dimension_ranges",
             "activation_idx", "delta", "input_scale", "head_mode")}
     cfg["basis_func"] = model.basis_func.__name__
-    net = from_config(cfg, dtype=dtype)
+    net = from_config(cfg, dtype=dtype, device="cpu")
     net.load_state_dict(params_from_jax(
         jax.tree.map(np.asarray, params), cfg))
     return net
@@ -159,7 +159,7 @@ def test_torch_rbf_distance_cancellation_regime():
     np.testing.assert_allclose(d.numpy(), d_ref, rtol=2e-5)
 
     net = WCRBFNet(F, K, K, "gaussian", R, [[-1e30]], [[1e30]], [[0], [0]],
-                   [0], [1.0])
+                   [0], [1.0], device="cpu")
     net.load_state_dict({"centers": torch.from_numpy(c),
                          "log_sigs": torch.from_numpy(log_sigs),
                          "head_kernel": torch.eye(K),

@@ -14,6 +14,7 @@ import torch
 from irbfn_tpu.dynamics import VehicleParams as JParams
 from irbfn_tpu.dynamics import f1tenth_params as jf1tenth
 from irbfn_tpu.sim import TrackEnv as JEnv
+from irbfn_tpu.sim import safety as jsafety
 from irbfn_tpu.sim import deviation_metrics as jdev
 from irbfn_tpu.sim import track as jtrack
 from irbfn_tpu.sim.env import Observation as JObs
@@ -21,6 +22,7 @@ from irbfn_tpu.sim.env import StepRecord as JRecord
 from irbfn_tpu.solvers.clothoid import wrap_angle as jwrap
 from irbfn_tpu_torch.dynamics import VehicleParams, f1tenth_params
 from irbfn_tpu_torch.sim import TrackEnv, deviation_metrics
+from irbfn_tpu_torch.sim import safety as tsafety
 from irbfn_tpu_torch.sim import track as ttrack
 from irbfn_tpu_torch.sim.env import Observation, StepRecord
 
@@ -40,19 +42,21 @@ def _close(t, j, **tol):
 @pytest.fixture(scope="module")
 def tracks():
     return (jtrack.oval_track(30.0, 15.0, n_samples=512, speed=3.0),
-            ttrack.oval_track(30.0, 15.0, n_samples=512, speed=3.0))
+            ttrack.oval_track(30.0, 15.0, n_samples=512, speed=3.0,
+                              device="cpu"))
 
 
 @pytest.mark.parametrize("which", ["oval512", "oval1024", "csv"])
 def test_torch_track_arrays_bit_equal(which):
     if which == "csv":
         kw = dict(speed_col=5, delimiter=";", skip_header=0)
-        j, t = jtrack.from_csv(CSV, 1, 2, **kw), ttrack.from_csv(CSV, 1, 2,
-                                                                 **kw)
+        j = jtrack.from_csv(CSV, 1, 2, **kw)
+        t = ttrack.from_csv(CSV, 1, 2, device="cpu", **kw)
     else:
         n = int(which[4:])
         j = jtrack.oval_track(30.0, 15.0, n_samples=n, speed=3.0)
-        t = ttrack.oval_track(30.0, 15.0, n_samples=n, speed=3.0)
+        t = ttrack.oval_track(30.0, 15.0, n_samples=n, speed=3.0,
+                               device="cpu")
     for a, b in zip(t.raceline, j.raceline):
         assert a.dtype == torch.float32
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -210,4 +214,66 @@ def test_torch_env_not_ported_options_raise(tracks):
     for kw in ({"occ_map": object()}, {"scan_spec": object()},
                {"enable_ttc": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TrackEnv(tt, f1tenth_params(), **kw)
+            TrackEnv(tt, f1tenth_params(device="cpu"), **kw)
+
+
+def _pid_inputs(rng, B):
+    """Speed/steer commands against current states that hit every branch:
+    the steering deadband (|diff| <= 1e-4, both sides of it), speeding up
+    and braking, forward (v > 0) and reverse (v <= 0, v == 0 exactly)."""
+    steer_now = rng.uniform(-0.4, 0.4, B)
+    dsteer = rng.uniform(-0.3, 0.3, B)
+    dsteer[:B // 4] = rng.uniform(-9e-5, 9e-5, B // 4)  # inside the deadband
+    dsteer[B // 4] = 0.0
+    v_now = rng.uniform(-4.0, 7.0, B)
+    v_now[B // 4:B // 4 + 3] = 0.0
+    speed = v_now + rng.uniform(-3.0, 3.0, B)
+    return speed, steer_now + dsteer, v_now, steer_now
+
+
+def test_torch_pid_and_speed_action_f64():
+    rng = np.random.default_rng(8)
+    B = 64
+    speed, steer, v_now, steer_now = _pid_inputs(rng, B)
+    pj, pt = _lane_params(rng.uniform(0.5, 1.1, B), rng.uniform(1, 10, B))
+    assert ((v_now <= 0) & (speed > v_now)).any()
+    assert ((v_now > 0) & (speed < v_now)).any()
+    for v_min in (None, -3.0):
+        aj = jsafety.pid_lowlevel(*map(jnp.asarray, (speed, steer, v_now,
+                                                     steer_now)), pj,
+                                  v_min=v_min)
+        at = tsafety.pid_lowlevel(*map(torch.from_numpy, (speed, steer, v_now,
+                                                          steer_now)), pt,
+                                  v_min=v_min)
+        for a, b in zip(at, aj):
+            _close(a, b)
+    assert (at[1] == 0.0).sum() >= B // 4  # the deadband held
+    state = np.zeros((B, 7))
+    state[:, 2], state[:, 3] = steer_now, v_now
+    action = np.stack([speed, steer], axis=-1)
+    _close(tsafety.ACTION_MODES["speed"](torch.from_numpy(action),
+                                        torch.from_numpy(state), pt),
+           jsafety.speed_action(jnp.asarray(action), jnp.asarray(state), pj))
+
+
+def test_torch_env_steps_in_speed_mode(tracks):
+    """Ten control steps of [speed, steer] actions through the PID: the
+    same states as the JAX env, in f64."""
+    jt, tt = tracks
+    rng = np.random.default_rng(9)
+    B = 6
+    pj, pt = _lane_params(rng.uniform(0.5, 1.1, B), rng.uniform(1, 10, B))
+    je = JEnv(jt, pj, half_width=2.0, control_mode="speed")
+    te = TrackEnv(tt, pt, half_width=2.0, control_mode="speed")
+    noise = rng.standard_normal((B, 3))
+    sj = _jax_reset(je, B, noise)
+    st = te.reset(speed0=1.0, batch_shape=(B,), noise=torch.from_numpy(noise),
+                  noise_scale=0.01)
+    actions = np.stack([rng.uniform(0.5, 4.0, B), rng.uniform(-0.3, 0.3, B)],
+                       -1)
+    for _ in range(10):
+        sj = je.step(sj, jnp.asarray(actions))
+        st = te.step(st, torch.from_numpy(actions))
+    for a, b in zip(st, sj):
+        _close(a, b, **TOL_GEOM)
+    assert not st.done.any()
