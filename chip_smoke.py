@@ -15,8 +15,11 @@ exits non-zero:
 2. build: compiles both ``irbfn_tpu_torch/ops/csrc/*.cu`` into ``build/``
    with nvcc, one process each, started together;
 3. RBF kernel vs its plain PyTorch version on the card: the flagship at
-   B in {1, 7, 1000, 1024}, a shared-head net of the same width, every basis
-   function at a small shape, and the distance-cancellation regime;
+   B in {1, 7, 1000, 1024}, around the kernel's 32-row batch tile (31, 32,
+   33) and at 4096, a shared-head net of the same width, every basis
+   function at a small shape, shapes off the kernel's tiles (K = 100, O = 17,
+   F = 16, R = 1 and 5), the distance-cancellation regime, and two
+   forwards of one input, which must agree bit for bit;
 4. against JAX: the forward and ``IRBFNFrenetPlanner.plan_batch`` against
    the goldens the JAX package wrote (``scripts/export_torch_ckpt.py``);
 5. Frenet closed loop: the eval sweep's defaults, 10x10 (mu, cs) x 10
@@ -25,8 +28,9 @@ exits non-zero:
 6. times: the batch-1024 flagship forward, kernel against plain version;
 7. ADMM kernel vs its plain version: one-family launches at v_car in
    {-1, 4.5, 8} x G in {1, 7, 96, 4097} at 300 and 600 sweeps, two whole
-   reference families (2,642,368 goals each) row by row, and the planner's
-   shape (1000 one-goal families);
+   reference families (2,642,368 goals each) row by row, the planner's
+   shape (1000 one-goal families), shapes on both sides of the rule that
+   picks the kernel's variant, and two solves of one input, bit for bit;
 8. the RBF kernel at the goal net's width against its plain version and the
    golden's f64 forward;
 9. goal-MPC against JAX: 4,864 golden lattice rows through the kernel
@@ -38,8 +42,9 @@ exits non-zero:
     counted;
 12. the same in net mode (the RBF kernel);
 13. times with CUDA events, kernel and plain version in turns: the ADMM
-    solve of one whole family and of 1000 one-goal families, and the
-    ``goal_mpc_pr`` forward at B=1024.
+    solve of one whole family (in one launch, and as the table generator's
+    11 chunks of 262,144) and of 1000 one-goal families, the ``goal_mpc_pr``
+    forward at B=1024, the flagship forward at B=1, and an empty launch.
 
 The last two lines are a JSON object naming both kernels with their
 launches, errors, times and bounds, and the line
@@ -50,6 +55,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -163,18 +169,44 @@ def phase_device():
     return torch.device("cuda:0")
 
 
+def ptxas_summary(log: str) -> str:
+    """``ptxas -v``'s registers and spills, one entry per kernel of the
+    library: ``name<template arguments>: registers, spilled bytes``."""
+    out, name = [], "?"
+    spill = ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:  # _ZN..._GLOBAL__N__...<len>name<args>...: keep name and args
+            name = m.group(1)
+            k = re.search(r"\d+((?:rbf|admm)\w*?kernel\w*?)I(\w+?)EEv", name)
+            name = (f"{k.group(1)}<"
+                    f"{', '.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
+                    if k else re.sub(r"^.*?\d+((?:rbf|admm)_[a-z_]*kernel)E.*",
+                                     r"\1", name))
+        elif "spill" in line:
+            s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            spill = f"spills {s.group(1)}+{s.group(2)} B" if s else line
+        elif "registers" in line:
+            r = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {r.group(1) if r else '?'} registers, "
+                       f"{spill}")
+    return "; ".join(out)
+
+
 def phase_build():
-    """Both kernels' nvcc processes, started together."""
+    """Both kernels' nvcc processes, started together; registers and spills
+    of every kernel, which must be none."""
     from irbfn_tpu_torch.ops import KERNELS as OPS, build_kernel
 
     with ThreadPoolExecutor(len(OPS)) as pool:
         results = dict(zip(OPS, pool.map(build_kernel, OPS)))
     for name, res in results.items():
-        ptxas = " | ".join(line.strip() for line in res.log.splitlines()
-                           if "registers" in line or "spill" in line)
         print(f"build {name}: {res.path.name} in {res.seconds:.2f} s nvcc"
-              f"{' (already built)' if res.seconds == 0.0 else ''}; {ptxas}",
-              flush=True)
+              f"{' (already built)' if res.seconds == 0.0 else ''}; "
+              f"{ptxas_summary(res.log)}", flush=True)
+        spilled = [int(n) for n in re.findall(r"(\d+) bytes spill", res.log)]
+        check(not any(spilled), f"{name} spills registers: {res.log}")
 
 
 def reset_launches():
@@ -227,12 +259,13 @@ def _compare(label, x, ops, tol, relative=False):
 
 def _random_net(rng, device, R, K, F, O, basis, head_mode):
     """A WCRBFNet with numpy-drawn weights and an anisotropic input scale;
-    its R = 2**n regions split the first n even dims at 0."""
+    its R <= 2**n regions are the first R boxes of the first n even dims
+    split at 0."""
     import torch
 
     from irbfn_tpu_torch.models import WCRBFNet
 
-    n = R.bit_length() - 1
+    n = (R - 1).bit_length()
     act = [2 * i for i in range(n)]
     ranges = [[(r >> i) & 1 for i in range(n)] for r in range(R)]
     model = WCRBFNet(F, O, K, basis, R, [[-3.0, 0.0]] * n, [[0.0, 3.0]] * n,
@@ -261,16 +294,21 @@ def phase_kernel_vs_plain(device, golden):
     import torch
 
     from irbfn_tpu_torch.models import BASIS_FUNCTIONS
-    from irbfn_tpu_torch.ops import wcrbf_params_to_kernel
+    from irbfn_tpu_torch.ops import wcrbf_forward, wcrbf_params_to_kernel
 
     rng = np.random.default_rng(0)
     model, config = _flagship(device)
     ops = wcrbf_params_to_kernel(model)
     x = torch.as_tensor(golden["x"], device=device) * model.input_scale
     errs = {}
-    for B in (1, 7, 1000, 1024):
+    for B in (1, 7, 31, 32, 33, 1000, 1024):
         errs[B] = _compare(f"flagship B={B}", x[:B].contiguous(), ops,
                            TOL_FLAGSHIP)
+    errs[4096] = _compare("flagship B=4096", x.repeat(4, 1), ops,
+                          TOL_FLAGSHIP)
+    with torch.no_grad():  # the same bits on every call
+        twice = [wcrbf_forward(x, ops) for _ in range(2)]
+    check(torch.equal(*twice), "two flagship forwards of one input differ")
     shared = _random_net(rng, device, 16, 512, 8, 10, "gaussian", "shared")
     e_shared = _compare("shared head R=16 K=512",
                         _random_x(rng, shared, 1024, device),
@@ -283,13 +321,29 @@ def phase_kernel_vs_plain(device, golden):
             e_basis = max(e_basis, _compare(
                 f"basis {name} {mode}", _random_x(rng, net, 65, device),
                 wcrbf_params_to_kernel(net), TOL_RANDOM, relative=True))
+    # off the kernel's tiles: K no multiple of 32, O over one output chunk,
+    # F over 8, one region, and a region count no group size divides
+    e_shapes = {}
+    for R, K, F, O, B in ((4, 100, 8, 10, 65), (4, 64, 8, 17, 65),
+                          (4, 64, 16, 10, 65), (1, 128, 8, 3, 65),
+                          (5, 100, 5, 17, 4096), (5, 64, 12, 2, 300)):
+        for mode in ("shared", "per_region"):
+            net = _random_net(rng, device, R, K, F, O, "gaussian", mode)
+            e = _compare(f"R={R} K={K} F={F} O={O} B={B} {mode}",
+                         _random_x(rng, net, B, device),
+                         wcrbf_params_to_kernel(net), TOL_RANDOM,
+                         relative=True)
+            e_shapes[R, K, F, O, B] = max(e, e_shapes.get((R, K, F, O, B),
+                                                          0.0))
     e_cancel = phase_cancellation(device)
     print("kernel vs plain: flagship max|err| "
           + ", ".join(f"B={b} {e:.2e}" for b, e in errs.items())
-          + f" (tol {TOL_FLAGSHIP}); shared head R=16 K=512 rel {e_shared:.2e}"
-          f"; 15 bases x 2 heads rel {e_basis:.2e} (tol {TOL_RANDOM}); "
-          f"cancellation regime vs f64 rel {e_cancel:.2e} (tol 2e-4)",
-          flush=True)
+          + f" (tol {TOL_FLAGSHIP}), two forwards bitwise equal; shared head "
+          f"R=16 K=512 rel {e_shared:.2e}; 15 bases x 2 heads rel "
+          f"{e_basis:.2e}; (R, K, F, O, B) x 2 heads rel "
+          + ", ".join(f"{k} {e:.2e}" for k, e in e_shapes.items())
+          + f" (tol {TOL_RANDOM}); cancellation regime vs f64 rel "
+          f"{e_cancel:.2e} (tol 2e-4)", flush=True)
     return model, config, errs[1024]
 
 
@@ -462,7 +516,9 @@ def _bound(flops, nbytes):
 
 
 def phase_times(device, model, golden):
-    """Batch-1024 flagship forward, kernel vs plain, timed in turns."""
+    """The flagship forward at B=1024 and B=1, kernel vs plain, timed in
+    turns, and what an empty launch costs (the floor under a forward, which
+    is two launches)."""
     import torch
 
     from irbfn_tpu_torch.ops import rbf
@@ -470,16 +526,23 @@ def phase_times(device, model, golden):
     ops = rbf.wcrbf_params_to_kernel(model)
     x = (torch.as_tensor(golden["x"], device=device)
          * model.input_scale).contiguous()
+    x1 = x[:1].contiguous()
     with torch.no_grad():
         ms, t = _in_turns(lambda: rbf.wcrbf_forward_reference(x, ops),
                           lambda: rbf.wcrbf_forward(x, ops))
+        ms1, t1 = _in_turns(lambda: rbf.wcrbf_forward_reference(x1, ops),
+                            lambda: rbf.wcrbf_forward(x1, ops))
+    floor = [_time_ms(rbf.empty_launch, iters=1000) for _ in range(2)]
     nbytes = 4 * (sum(o.numel() for o in ops[:7]) + x.numel()
                   + x.shape[0] * ops.w.shape[-1])
     bound_ms, bound_by = _bound(_rbf_flops(x.shape[0], ops), nbytes)
-    print(f"times, B=1024 flagship forward (CUDA events, mean of 2 x 200 "
-          f"calls): kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms"
-          f" (runs {t['kernel']} / {t['plain']}); bound {bound_ms:.4f} ms "
-          f"by {bound_by}", flush=True)
+    print(f"times, flagship forward (CUDA events, mean of 2 x 200 calls): "
+          f"B=1024 kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms"
+          f" (runs {t['kernel']} / {t['plain']}), bound {bound_ms:.4f} ms "
+          f"by {bound_by}; B=1 kernel {ms1['kernel']:.4f} ms, plain "
+          f"{ms1['plain']:.4f} ms (runs {t1['kernel']} / {t1['plain']}); "
+          f"an empty launch {min(floor):.5f} ms (runs {floor}), a forward is "
+          "two launches", flush=True)
     return dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -613,21 +676,39 @@ def phase_admm_vs_plain(device, lattice_goals):
                   flush=True)
         del ops
 
-    # (iii) the planner's shape: 1000 one-goal families
-    F = 1000
-    goals = np.stack([rng.uniform(-1.2, 4.0, F), rng.uniform(0.0, 4.0, F),
-                      rng.uniform(-1.0, 8.0, F), rng.uniform(-3.14, 3.14, F)],
-                     axis=1)
-    ops = _admm_operands(
-        torch.as_tensor(rng.uniform(-1.0, 8.0, F), dtype=torch.float32,
-                        device=device),
-        torch.as_tensor(goals[:, None], dtype=torch.float32, device=device))
-    err, flips, _, _ = _admm_errors(ops, 600, admm.admm_solve,
-                                    admm.admm_solve_reference)
-    _check_admm("F=1000 G=1", err, flips)
-    print("ADMM kernel vs plain, F=1000 one-goal families, 600 sweeps: "
-          "max|err| " + ", ".join(f"{k} {e:.2e}" for k, e in err.items()),
-          flush=True)
+    # (iii) the planner's shape, 1000 one-goal families, and shapes on both
+    # sides of the variant rule: few rows, a ragged last block of the family
+    # variant, several families in one family-variant launch
+    per_block = admm.FAMILY_BLOCK_ROWS
+    shapes = ((1000, 1), (19, 1000), (3, 33), (1, 1),
+              (1, admm.FAMILY_MIN_ROWS + per_block // 2 + 23),
+              (3, admm.FAMILY_MIN_ROWS // 2 + 5))
+    check({admm.admm_variant(*fg) for fg in shapes} == set(admm.VARIANTS)
+          and admm.admm_variant(*shapes[4]) == "family"
+          and shapes[4][1] % per_block, "the shapes miss a variant")
+    lines = []
+    for F, G in shapes:
+        goals = np.stack([rng.uniform(-1.2, 4.0, F * G),
+                          rng.uniform(0.0, 4.0, F * G),
+                          rng.uniform(-1.0, 8.0, F * G),
+                          rng.uniform(-3.14, 3.14, F * G)], axis=1)
+        ops = _admm_operands(
+            torch.as_tensor(rng.uniform(-1.0, 8.0, F), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(goals.reshape(F, G, 4), dtype=torch.float32,
+                            device=device))
+        err, flips, _, _ = _admm_errors(ops, 600, admm.admm_solve,
+                                        admm.admm_solve_reference)
+        _check_admm(f"F={F} G={G}", err, flips)
+        twice = [admm.admm_solve(*ops, iters=600) for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*twice)),
+              f"two ADMM solves of one input differ at F={F} G={G}")
+        lines.append(f"({F}, {G}) {admm.admm_variant(F, G)} controls "
+                     f"{err['controls']:.2e} r_prim {err['r_prim']:.2e} "
+                     f"r_dual {err['r_dual']:.2e}")
+    print("ADMM kernel vs plain, (F, G) across the variant rule, 600 sweeps, "
+          "max|err|: " + "; ".join(lines) + "; two solves of each bitwise "
+          "equal", flush=True)
     return fam_err
 
 
@@ -817,7 +898,17 @@ def phase_goal_times(device, lattice_goals, net, golden):
     ms_fam, t_fam = _in_turns(
         lambda: admm.admm_solve_reference(*fam_ops, iters=600),
         lambda: admm.admm_solve(*fam_ops, iters=600), iters=1, warmup=1)
-    del fam_ops
+    # the same family as the table generator launches it: chunks of 262,144
+    chunk = 262144
+    parts = [(fam_ops[0][:, i:i + chunk].contiguous(),) + fam_ops[1:]
+             for i in range(0, g.shape[0], chunk)]
+
+    def chunks():
+        for p in parts:
+            admm.admm_solve(*p, iters=600)
+
+    t_chunks = [_time_ms(chunks, iters=1, warmup=1) for _ in range(2)]
+    del fam_ops, parts
     rng = np.random.default_rng(2)
     F = 1000
     goals = torch.as_tensor(lattice_goals[rng.choice(len(lattice_goals), F)],
@@ -843,7 +934,9 @@ def phase_goal_times(device, lattice_goals, net, golden):
     print(f"times (CUDA events, in turns): ADMM whole family ({G:,} goals, "
           f"600 sweeps) kernel {ms_fam['kernel']:.3f} ms, plain "
           f"{ms_fam['plain']:.3f} ms (runs {t_fam['kernel']} / "
-          f"{t_fam['plain']}), bound {b_fam[0]:.3f} ms by {b_fam[1]}; "
+          f"{t_fam['plain']}), bound {b_fam[0]:.3f} ms by {b_fam[1]}; the "
+          f"family as {-(-G // chunk)} launches of {chunk:,} "
+          f"{min(t_chunks):.3f} ms (runs {t_chunks}); "
           f"ADMM F=1000 one-goal families kernel {ms_row['kernel']:.4f} ms, "
           f"plain {ms_row['plain']:.4f} ms (runs {t_row['kernel']} / "
           f"{t_row['plain']}), bound {b_row[0]:.5f} ms by {b_row[1]}; "

@@ -117,7 +117,27 @@ class WCRBFNet(nn.Module):
                 torch.as_tensor(np.asarray(val, np.float64), **kw),
                 persistent=False)
 
+        self._operands = (None, None)  # (key, RBFOperands) of the last pack
+
+    def kernel_operands(self) -> "_rbf.RBFOperands":
+        """``ops/rbf.py:wcrbf_params_to_kernel(self)``, packed once and kept
+        until a weight or a gate constant changes (in place, or by moving the
+        module). While autograd records, nothing is kept: the operands must
+        then stay functions of the parameters."""
+        src = [t for t in (self.centers, self.log_sigs, self.head_kernel,
+                           self.head_bias, self.gate_lb, self.gate_ub,
+                           self.gate_delta, self.input_scale)
+               if t is not None]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in src):
+            return _rbf.wcrbf_params_to_kernel(self)
+        key = tuple((t.data_ptr(), t.dtype,
+                     0 if t.is_inference() else t._version) for t in src)
+        if self._operands[0] != key:
+            with torch.no_grad():
+                self._operands = (key, _rbf.wcrbf_params_to_kernel(self))
+        return self._operands[1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.input_scale is not None:
             x = x * self.input_scale.to(x.dtype)
-        return _rbf.wcrbf_forward(x, _rbf.wcrbf_params_to_kernel(self))
+        return _rbf.wcrbf_forward(x, self.kernel_operands())

@@ -42,18 +42,21 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build(name: str) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` unless a library of this source exists."""
+def build(name: str, defines: tuple = ()) -> BuildResult:
+    """Compile ``csrc/<name>.cu`` unless a library of this source exists.
+    ``defines`` are ``NAME=value`` macros for the source's tuning knobs
+    (``scripts/tune_admm_family.py``); the package builds with none."""
     src = CSRC_DIR / f"{name}.cu"
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+    proc = subprocess.run([find_nvcc(), *flags, "-o", str(tmp),
                            str(src)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:

@@ -8,7 +8,11 @@ is the planner's (``solvers/goal_mpc.py:solve_goal_mpc``). ``admm_solve``
 dispatches on the device of ``q``:
 
 - a CUDA tensor launches the hand-written Hopper kernel
-  ``csrc/admm_solve.cu`` (built by ``_build.py`` at first use) or raises;
+  ``csrc/admm_solve.cu`` (built by ``_build.py`` at first use) or raises.
+  The kernel has two variants and ``admm_variant`` picks one from (F, G):
+  ``"family"`` (a thread owns two goal rows, a block shares its family's
+  matrices) for many rows per family, ``"lane"`` (a warp owns one goal row
+  and keeps its family's matrices in registers) for everything else;
 - a CPU tensor runs ``admm_solve_reference``, the plain PyTorch version of
   the same function, which the tests and ``chip_smoke.py`` hold the kernel
   against;
@@ -25,6 +29,31 @@ import functools
 import torch
 
 HORIZONS = (8,)  # the MPC horizons T the kernel is compiled for
+VARIANTS = ("family", "lane")  # the kernel's ``variant`` argument, by index
+# The family variant's block solves FAMILY_BLOCK_ROWS goal rows of one
+# family (128 threads x 2 rows, csrc/admm_solve.cu). It is the faster variant
+# (~0.040 us a row against ~0.065 on an H100) once the solve fills the card's
+# resident blocks and the blocks are mostly full; under that the lane variant
+# wins, because a warp per row finishes 600 sweeps in ~0.1 ms where a thread
+# per two rows needs ~2.5 ms however few rows there are.
+FAMILY_BLOCK_ROWS = 256
+FAMILY_MIN_ROWS = 40960
+FAMILY_MIN_FILL = 0.625
+
+
+# csrc/admm_solve.cu:admm_solve_f32: nine arrays, F, G, T, iters, sigma,
+# alpha, the variant's index, the stream
+ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+            + [ctypes.c_int, ctypes.c_void_p])
+
+
+def admm_variant(F: int, G: int) -> str:
+    """The kernel variant that serves F families of G goal rows each:
+    ``"family"`` when there are at least FAMILY_MIN_ROWS rows in all and a
+    family's rows fill its blocks to FAMILY_MIN_FILL or more."""
+    blocks = -(-G // FAMILY_BLOCK_ROWS)
+    full = G >= FAMILY_MIN_FILL * blocks * FAMILY_BLOCK_ROWS
+    return "family" if F * G >= FAMILY_MIN_ROWS and full else "lane"
 
 
 def _clip(v, lo, hi):
@@ -69,9 +98,15 @@ def _library() -> ctypes.CDLL:
     res = build("admm_solve")
     lib = ctypes.CDLL(str(res.path))
     fn = lib.admm_solve_f32
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
+    lib.admm_family_rows_per_block.argtypes = []
+    lib.admm_family_rows_per_block.restype = ctypes.c_int
+    rows = lib.admm_family_rows_per_block()
+    if rows != FAMILY_BLOCK_ROWS:
+        raise RuntimeError(f"csrc/admm_solve.cu solves {rows} rows per block "
+                           f"of its family variant, admm_variant assumes "
+                           f"{FAMILY_BLOCK_ROWS}")
     lib.build_result = res
     return lib
 
@@ -101,9 +136,10 @@ def _launch(q, A, kinv, lo, hi, rho, iters, sigma, alpha):
     if n != 2 * T or m != 4 * T - 1 or T not in HORIZONS:
         raise ValueError(f"the CUDA ADMM kernel is compiled for horizons "
                          f"{HORIZONS} (n = 2T, m = 4T - 1); got n={n}, m={m}")
-    if F > 65535:
-        raise ValueError(f"the CUDA ADMM kernel takes at most 65535 "
-                         f"families per launch, got {F}")
+    variant = admm_variant(F, G)
+    if variant == "family" and F > 65535:
+        raise ValueError("the CUDA ADMM kernel's family variant takes at "
+                         f"most 65535 families per launch, got {F}")
     if q.data_ptr() % 16 or A.data_ptr() % 16 or kinv.data_ptr() % 16:
         raise ValueError("the CUDA ADMM kernel reads q, A and kinv as "
                          "float4: their data must be 16-byte aligned")
@@ -118,7 +154,7 @@ def _launch(q, A, kinv, lo, hi, rho, iters, sigma, alpha):
         rc = lib.admm_solve_f32(
             *(t.data_ptr() for t in tensors), x.data_ptr(), r_prim.data_ptr(),
             r_dual.data_ptr(), F, G, T, int(iters), float(sigma),
-            float(alpha), stream)
+            float(alpha), VARIANTS.index(variant), stream)
     if rc != 0:
         raise RuntimeError(f"admm_solve kernel launch failed: CUDA error "
                            f"{rc}")
@@ -131,8 +167,9 @@ def admm_solve(q, A, kinv, lo, hi, rho, iters: int = 600,
     """Box-QP ADMM for (F, G) goal rows sharing each family's factorization;
     the shapes of ``admm_solve_reference``.
 
-    CUDA tensors launch the kernel (f32, horizon 8) or raise; CPU tensors
-    take the plain version; other devices raise.
+    CUDA tensors launch the kernel (f32, horizon 8; the variant that
+    ``admm_variant`` names) or raise; CPU tensors take the plain version;
+    other devices raise.
     """
     if q.device.type == "cuda":
         return _launch(q, A, kinv, lo, hi, rho, iters, sigma, alpha)

@@ -209,6 +209,49 @@ def test_torch_admm_dispatch_has_no_fallback():
                                                 fam.hi, rho)), 10, 1e-6, 1.6)
 
 
+@pytest.mark.parametrize("F,G,variant", [
+    (1, 2_642_368, "family"),  # one lattice family in one launch
+    (1, 262_144, "family"),  # the table generator's chunk
+    (1, 1, "lane"), (1000, 1, "lane"),  # the planner: one goal per lane
+    (19, 1000, "lane"), (3, 33, "lane"),
+    (1, 40_959, "lane"), (1, 40_960, "family"),  # the least total
+    (1000, 256, "family"), (1000, 160, "family"),
+    (1000, 159, "lane"), (4000, 64, "lane"),  # blocks mostly empty
+    (19, 2560, "family"),
+])
+def test_torch_admm_variant_rule(F, G, variant):
+    """Which kernel variant serves (F, G): the family variant from 40,960
+    rows in all, with each family's 256-row blocks at least 5/8 full; the
+    lane variant (a warp per row, any shape) otherwise."""
+    assert admm.admm_variant(F, G) == variant
+    assert variant in admm.VARIANTS
+
+
+def test_torch_admm_launch_checks_raise():
+    """Shape and alignment checks of the kernel wrapper, before the card."""
+    goals = _goals(np.random.default_rng(8), 4).astype(np.float32)
+    fam, rho, kinv, q = P._family_operands(
+        torch.tensor([2.0]), torch.from_numpy(goals[None]), CFG, 1e-6)
+    ops = [t.contiguous() for t in (q, fam.A_con, kinv, fam.lo, fam.hi, rho)]
+    with pytest.raises(ValueError, match="contiguous"):
+        admm._launch(ops[0].transpose(1, 2).contiguous().transpose(1, 2),
+                     *ops[1:], 10, 1e-6, 1.6)
+    with pytest.raises(ValueError, match="do not agree"):
+        admm._launch(*ops[:3], ops[3][:, :30].contiguous(), *ops[4:], 10,
+                     1e-6, 1.6)
+    with pytest.raises(ValueError, match="do not agree"):
+        admm._launch(*ops[:5], torch.ones(2), 10, 1e-6, 1.6)
+    flat = torch.zeros(ops[0].numel() + 1)
+    off = flat[1:].view(ops[0].shape).copy_(ops[0])
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        admm._launch(off, *ops[1:], 10, 1e-6, 1.6)
+    big = [t.expand((70000,) + t.shape[1:]) for t in ops]
+    assert admm.admm_variant(70000, 1) == "lane"  # no family limit applies
+    with pytest.raises(ValueError, match="contiguous"):
+        admm._launch(*big, 10, 1e-6, 1.6)
+
+
 def test_torch_default_device_is_the_card():
     assert _device.resolve_device(None) == torch.device("cuda")
     assert _device.resolve_device("cpu") == torch.device("cpu")

@@ -224,6 +224,166 @@ def test_torch_rbf_dispatch_by_device(shared_net):
         rbf.wcrbf_forward(torch.zeros((3, 8), device="meta"), ops)
 
 
+def _random_operands(rng, R, K, F, O, per_region, dtype=torch.float32):
+    """RBFOperands with numpy-drawn weights in the plain layout, packed."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype)  # noqa: E731
+    centers = t(rng.normal(size=(R, K, F)))
+    inv_sigs = t(rng.uniform(0.5, 2.0, (R, K)))
+    w = t(rng.normal(size=(R, K, O) if per_region else (K, O)))
+    b = t(rng.normal(size=(R, O) if per_region else (O,)))
+    lb = t(np.where(rng.random((R, F)) < 0.5, -1e30, -1.0))
+    ub = t(np.where(rng.random((R, F)) < 0.5, 1e30, 1.0))
+    return rbf.RBFOperands(centers, inv_sigs, lb, ub, t(np.ones(F)), w, b,
+                           "gaussian", *rbf.pack_operands(centers, inv_sigs,
+                                                          w))
+
+
+@pytest.mark.parametrize("per_region", [True, False])
+@pytest.mark.parametrize("R,K,F,O", [(4, 32, 8, 10), (3, 100, 5, 2),
+                                     (2, 64, 12, 17), (1, 512, 16, 1)])
+def test_torch_rbf_packed_operands_hold_the_plain_ones(R, K, F, O,
+                                                       per_region):
+    """The kernel's layout: centers (R, FP + 1, Kp) with the widths as the
+    last row, heads (R, O, Kp) | (O, Kp); unpacking gives the plain layout
+    back bit for bit, every pad is zero, and every row starts on a 16-byte
+    boundary."""
+    ops = _random_operands(np.random.default_rng(11), R, K, F, O, per_region)
+    cp, wp = ops.c_packed, ops.w_packed
+    FP = 8 if F <= 8 else 16
+    Kp = -(-K // 32) * 32
+    assert rbf.packed_features(F) == FP
+    assert cp.shape == (R, FP + 1, Kp)
+    assert wp.shape == ((R, O, Kp) if per_region else (O, Kp))
+    for got, want in zip(rbf.unpack_operands(cp, wp, K, F),
+                         (ops.centers, ops.inv_sigs, ops.w)):
+        assert torch.equal(got, want)
+    assert not cp[:, :, K:].any() and not wp[..., K:].any()
+    assert not cp[:, F:FP].any()
+    for t in (cp, wp):
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
+        assert (t.stride(-2) * t.element_size()) % 16 == 0
+    # the rows as the kernel indexes them
+    r, k = R - 1, K - 1
+    assert cp[r, F - 1, k] == ops.centers[r, k, F - 1]
+    assert cp[r, FP, k] == ops.inv_sigs[r, k]
+    assert (wp[r, O - 1, k] if per_region else wp[O - 1, k]) == (
+        ops.w[r, k, O - 1] if per_region else ops.w[k, O - 1])
+
+
+@pytest.mark.parametrize("head_mode", ["shared", "per_region"])
+def test_torch_rbf_model_operands_packed_once(head_mode):
+    """WCRBFNet.kernel_operands packs once per set of weights: the same
+    object on every forward, a new one after the weights change, and its
+    packed tensors always the plain ones repacked."""
+    model, params = _jax_net(5, head_mode=head_mode)
+    net = _port(model, params)
+    x = np.random.default_rng(3).normal(size=(9, 8)).astype(np.float32)
+    with torch.no_grad():
+        first = net.kernel_operands()
+        out = net(torch.from_numpy(x))
+        assert net.kernel_operands() is first
+        K, F = first.centers.shape[1:]
+        for got, want in zip(
+                rbf.unpack_operands(first.c_packed, first.w_packed, K, F),
+                (first.centers, first.inv_sigs, first.w)):
+            assert torch.equal(got, want)
+        before = first.centers.clone()  # without a scale it is the weight
+        net.centers.add_(0.25)
+        second = net.kernel_operands()
+        assert second is not first
+        assert torch.equal(second.centers, before + 0.25)
+        assert torch.equal(second.c_packed[:, :F, :K],
+                           second.centers.transpose(1, 2))
+        assert not torch.allclose(net(torch.from_numpy(x)), out)
+        state = {k: v.clone() for k, v in net.state_dict().items()}
+        net.load_state_dict(state)
+        assert net.kernel_operands() is not second
+    with _jax32():
+        ref = model.apply(params, jnp.asarray(x))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
+    # while autograd records, the operands stay functions of the weights
+    net.centers.requires_grad_(True)
+    net(torch.from_numpy(x)).sum().backward()
+    assert net.centers.grad is not None and net.centers.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("B,expect", [(1, (1, 1)), (7, (1, 1)),
+                                      (1024, (2, 2)), (4096, (8, 2)),
+                                      (100000, (16, 2))])
+def test_torch_rbf_launch_plan_flagship(B, expect):
+    """Regions per block and stages at the flagship width on a 132-SM card:
+    one region per block while the batch is small, about two blocks per SM
+    beyond, double-buffered when a block loops over regions."""
+    assert rbf.launch_plan(B, 16, 512, 8, 10, 132) == expect
+
+
+def test_torch_rbf_launch_plan_limits():
+    """Uneven region counts are split into even groups; a tile too large for
+    two stages takes one; one too large for the card raises."""
+    assert rbf.launch_plan(4096, 5, 100, 8, 17, 132) == (2, 2)  # 2, 2, 1
+    assert rbf.launch_plan(2624, 16, 512, 8, 10, 132) == (4, 2)  # not 5
+    assert rbf.launch_plan(512, 16, 512, 8, 10, 132)[0] == 1
+    # 33 rows of 1024 floats: 135 KB a stage, two do not fit
+    assert rbf.launch_plan(4096, 16, 1024, 16, 16, 132) == (8, 1)
+    assert rbf.smem_bytes(512, 8, 10, 2, 2) == 4 * (2 * (21 * 512 + 16) + 64)
+    assert rbf.smem_bytes(100, 5, 2, 1, 1) == 4 * (13 * 128 + 16 + 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        rbf.launch_plan(1024, 16, 2048, 16, 16, 132)
+
+
+def test_torch_rbf_launch_checks_raise():
+    """The kernel wrapper refuses what the kernel does not take before it
+    reaches the card: other types, too many features, operands that were
+    not packed or do not agree, packed data off a 16-byte boundary."""
+    rng = np.random.default_rng(12)
+    ops = _random_operands(rng, 2, 32, 8, 3, True)
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="f32"):
+        rbf._launch(x.double(), ops)
+    with pytest.raises(ValueError, match="f32"):
+        rbf._launch(x, ops._replace(lb=ops.lb.double()))
+    with pytest.raises(ValueError, match="contiguous"):
+        rbf._launch(x, ops._replace(b=ops.b.T.contiguous().T))
+    with pytest.raises(ValueError, match="at most 16 features"):
+        rbf._launch(torch.zeros((4, 17)),
+                    _random_operands(rng, 2, 32, 17, 3, True))
+    with pytest.raises(ValueError, match="packed"):
+        rbf._launch(x, ops._replace(c_packed=None))
+    with pytest.raises(ValueError, match="do not agree"):
+        rbf._launch(x, ops._replace(ub=ops.ub[:1].contiguous()))
+    with pytest.raises(ValueError, match="do not agree"):
+        rbf._launch(x, ops._replace(w_packed=ops.w_packed[0].contiguous()))
+    with pytest.raises(ValueError, match="do not agree"):
+        rbf._launch(torch.zeros((4, 7)), ops)
+    flat = torch.zeros(ops.w_packed.numel() + 1)
+    off = flat[1:].view(ops.w_packed.shape).copy_(ops.w_packed)
+    with pytest.raises(ValueError, match="16-byte"):
+        rbf._launch(x, ops._replace(w_packed=off))
+    with pytest.raises(ValueError, match="no basis"):
+        rbf._launch(x, ops._replace(basis="sinc"))
+    with pytest.raises(RuntimeError, match="no backward"):
+        rbf._launch(x.requires_grad_(True), ops)
+    # a 17-feature net packs nothing and still runs its plain version
+    net = WCRBFNet(17, 3, 32, "gaussian", 2, [[-1.0, 0.0]], [[0.0, 1.0]],
+                   [[0], [1]], [0], [5.0], device="cpu")
+    wide = net.kernel_operands()
+    assert wide.c_packed is None and wide.w_packed is None
+    with torch.no_grad():
+        assert net(torch.zeros((4, 17))).shape == (4, 3)
+
+
+@pytest.mark.parametrize("per_region", [True, False])
+def test_torch_rbf_reference_ignores_the_packed_layout(per_region):
+    """The plain version reads the plain layout only: operands with and
+    without the packed tensors give the same bits."""
+    rng = np.random.default_rng(13)
+    ops = _random_operands(rng, 4, 100, 5, 17, per_region)
+    x = torch.as_tensor(rng.normal(size=(33, 5)), dtype=torch.float32)
+    bare = ops._replace(c_packed=None, w_packed=None)
+    assert torch.equal(rbf.wcrbf_forward(x, ops),
+                       rbf.wcrbf_forward(x, bare))
+
+
 def test_torch_rbf_not_ported_models_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         from_config({"model_class": "DeeperWCRBFNet"})
