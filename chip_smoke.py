@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (one NVIDIA GPU).
 
-Drives ``irbfn_tpu_torch`` through its two paths, each with its hand-written
-kernel: the learned Frenet planner in closed loop, with the flagship
-``frenet_wide_pr1`` WCRBF net (R=16 regions, K=512 kernels, F=8 inputs,
-O=10 outputs, per-region heads; kernel ``rbf_forward``), and the goal-MPC
-path (kernel ``admm_solve``): the reference goal lattice and the goal-MPC
-closed loop in both planner modes, the live ADMM solve and the
-``goal_mpc_pr`` net (F=5, O=2). Each phase prints one line, and any failure
+Drives ``irbfn_tpu_torch`` through its three paths: the learned Frenet
+planner in closed loop, with the flagship ``frenet_wide_pr1`` WCRBF net
+(R=16 regions, K=512 kernels, F=8 inputs, O=10 outputs, per-region heads;
+kernel ``rbf_forward``); the goal-MPC path (kernel ``admm_solve``): the
+reference goal lattice and the goal-MPC closed loop in both planner modes,
+the live ADMM solve and the ``goal_mpc_pr`` net (F=5, O=2); and the
+fit-and-train path, which makes a goal net from the lattice just solved
+(closed-form per-region fit, checkpoint, offline eval through both kernels,
+Adam fine-tune, closed loop). Each phase prints one line, and any failure
 exits non-zero:
 
 1. device: requires CUDA (never falls back to the CPU); prints the card's
@@ -44,7 +46,24 @@ exits non-zero:
 13. times with CUDA events, kernel and plain version in turns: the ADMM
     solve of one whole family (in one launch, and as the table generator's
     11 chunks of 262,144) and of 1000 one-goal families, the ``goal_mpc_pr``
-    forward at B=1024, the flagship forward at B=1, and an empty launch.
+    forward at B=1024, the flagship forward at B=1, and an empty launch;
+14. fit on the card: phase 10's lattice as a table (50,204,992 rows resident
+    on the card), ``train_goal_mpc`` at the committed ``goal_mpc_pr``
+    recipe (R=16, K=512, per-region heads, inverse-quadratic basis, seed
+    0); seconds of each part, rows/s, and the strided MAE beside the
+    committed net's on the same rows;
+15. the fitted net through the kernels: saved, reloaded, and
+    ``eval_goal_mpc``: table MAE through ``rbf_forward`` and 4,096 off-grid
+    rows against one ``admm_solve`` launch of 1200 sweeps; its kernel
+    forward against its module-path forward;
+16. fine-tune on the card: 200 Adam steps of the L1 loss at batch 8192
+    through ``train_epochs`` (autograd through the module path, no kernel
+    launch); ms per step and peak memory;
+17. the fitted net in the net-mode goal-MPC closed loop: every lane must
+    finish, with a mean |ey| within 25% of phase 12's;
+18. the flagship's f32 ``frenet_fullint_loss``, gradient norms and five Adam
+    steps against the JAX package's f64 fixture
+    (``scripts/export_torch_ckpt.py --train_golden``).
 
 The last two lines are a JSON object naming both kernels with their
 launches, errors, times and bounds, and the line
@@ -58,6 +77,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -68,6 +88,7 @@ ASSETS = os.path.join(ROOT, "irbfn_tpu_torch", "assets")
 ASSET = os.path.join(ASSETS, "frenet_wide_pr1")
 GOAL_ASSET = os.path.join(ASSETS, "goal_mpc_pr")
 GOAL_GOLDEN = os.path.join(ASSETS, "goal_mpc_golden.npz")
+TRAIN_GOLDEN = ASSET + "_train_golden.npz"
 KERNELS = {
     "rbf_forward": {"name": "rbf_forward", "route": "cuda",
                     "source": "irbfn_tpu_torch/ops/csrc/rbf_forward.cu",
@@ -82,6 +103,14 @@ PEAK_BYTES_PER_S = 3.35e12
 N_STEPS = 600  # control steps of every closed loop
 # the lattice generator's flags (its defaults: the whole reference lattice)
 LATTICE_ARGS = ()
+# the committed goal_mpc_pr recipe (docs/ARTIFACTS.md): 16 regions x 512
+# kernels, per-region heads, inverse-quadratic basis, seed 0
+FIT_ARGS = ("--num_k", "512", "--num_v_car", "2", "--num_x_goal", "2",
+            "--num_t_goal", "2", "--num_v_goal", "2", "--seed", "0")
+TABLE_STRIDE = 1  # rows of the lattice kept for the fit: every one
+N_OFFGRID = 4096
+FINETUNE_STEPS = 200
+FINETUNE_BATCH = 8192
 
 # Tolerances, with their reasons:
 # - the flagship head is ill-conditioned (sum |w| ~ 2e5 per output): an f32
@@ -144,6 +173,22 @@ TOL_GOAL_EY_MEDIAN_MM = 5.0  # median over lanes of the per-lane difference
 TOL_GOAL_EY_LANE_MM = 150.0  # any lane
 TOL_GOAL_EY_SWEEP_MM = 0.5  # mean |ey| over the 1000 lanes
 TOL_GOAL_LAP_LANES = 10
+# - the net fitted on the card against the committed goal_mpc_pr (the same
+#   recipe on the same lattice): its strided MAE may be at most 1.25x the
+#   committed net's, and its closed loop's mean |ey| within 25% of it;
+TOL_FIT_MAE_RATIO = 1.25
+TOL_FIT_EY_RATIO = 0.25
+# - the flagship's f32 loss on the card against JAX's f64 fixture, relative
+#   (the port's f32 module path on a CPU was 2e-6 from it);
+TOL_TRAIN_LOSS = 1e-3
+# - its gradient norms, and the losses after Adam steps. The L1 loss's
+#   gradient is sign(y_pred - y) / N pushed back through the net; an f32
+#   output is up to ~4e-4 off (TOL_FLAGSHIP's reason) against target noise of
+#   scale 0.05, so ~0.5% of the signs flip, and a first Adam step moves every
+#   weight by +-lr whatever its gradient's size. The port's f32 module path
+#   on a CPU was up to 1.3e-2 from the fixture in a gradient norm (the head
+#   bias: 10 sums of 1,024 signs) and 1.2e-2 in a later step's loss.
+TOL_TRAIN_GRAD = 5e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -821,10 +866,13 @@ def phase_lattice(device):
           f"converged {100 * res['valid'].mean():.4f}% (the JAX package's "
           f"claim: every row), {int((~res['valid']).sum())} rows not; "
           f"kernel launches {launches}", flush=True)
-    return launches["admm_solve"], n / res["seconds"]
+    return launches["admm_solve"], n / res["seconds"], res
 
 
-def phase_goal_loop(device, golden, mode, net):
+def phase_goal_loop(device, golden, mode, net, against=None):
+    """The goal-MPC closed loop in ``mode``; held lane by lane against the
+    JAX golden, or, for a net the card just made (``against``: phase 12's
+    result with the committed net), by its outcome."""
     import torch
 
     from irbfn_tpu_torch.planning import GoalMPCPlanner
@@ -845,6 +893,22 @@ def phase_goal_loop(device, golden, mode, net):
     ey = deviation_metrics(traj)[0].cpu().numpy()
     done = final.done.cpu().numpy()
     laps = final.laps.cpu().numpy()
+    out = dict(launches=launches[kernel], rate=N_STEPS / wall,
+               ey=float(ey.mean()))
+    if against is not None:
+        print(f"goal-MPC closed loop, net mode, the net fitted on the card: "
+              f"{int((~done).sum())}/{B} lanes completed, laps>=1 "
+              f"{int((laps >= 1).sum())}; mean|ey| {ey.mean():.4f} m (the "
+              f"committed net in phase 12: {against['ey']:.4f} m, limit "
+              f"+-{100 * TOL_FIT_EY_RATIO:.0f}%); {N_STEPS} steps in "
+              f"{wall:.2f} s = {N_STEPS / wall:.1f} control steps/s; kernel "
+              f"launches {launches}", flush=True)
+        check(not done.any(), f"{int(done.sum())} lanes did not finish")
+        check(abs(out["ey"] - against["ey"])
+              <= TOL_FIT_EY_RATIO * against["ey"],
+              f"mean|ey| {out['ey']:.4f} m is not within "
+              f"{TOL_FIT_EY_RATIO:.0%} of {against['ey']:.4f} m")
+        return out
     ref = {k: golden[f"loop_{mode}_{k}"] for k in ("done", "laps",
                                                     "ey_mean")}
     d_ey_mm = 1e3 * np.abs(ey - ref["ey_mean"])
@@ -870,7 +934,7 @@ def phase_goal_loop(device, golden, mode, net):
           f"mm median, {d_ey_mm.max():.2f} mm at most")
     check(d_sweep_mm <= TOL_GOAL_EY_SWEEP_MM,
           f"sweep mean|ey| differs from JAX by {d_sweep_mm:.4f} mm")
-    return launches[kernel], N_STEPS / wall
+    return out
 
 
 def _admm_flops(F, G, iters) -> float:
@@ -948,6 +1012,236 @@ def phase_goal_times(device, lattice_goals, net, golden):
                 bound_ms=b_fam[0], bound_by=b_fam[1], library_ms=None)
 
 
+# ------------------------------------------------------ fit-and-train path
+
+def phase_fit(device, lattice, out_dir):
+    """Phase 14: the lattice of phase 10 as a table, fitted on the card by
+    the port's ``train_goal_mpc`` at the committed recipe."""
+    import torch
+
+    from irbfn_tpu_torch.parallel import gen_goal_mpc_table as gen
+    from irbfn_tpu_torch.train import load_model
+    from irbfn_tpu_torch.train import train_goal_mpc as tg
+
+    t0 = time.perf_counter()
+    table = gen.table_arrays(lattice)
+    keep = table["valid"]
+    if TABLE_STRIDE > 1:
+        keep = keep & (np.arange(keep.size) % TABLE_STRIDE == 0)
+    inputs, outputs = table["inputs"], table["outputs"]
+    if not keep.all():
+        inputs, outputs = inputs[keep], outputs[keep]
+    t_table = time.perf_counter() - t0
+    args = tg.parse_args(list(FIT_ARGS) + [
+        "--npz_path", "(the lattice of phase 10)", "--run_name",
+        "goal_mpc_card", "--device", str(device), "--out_dir", out_dir])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = tg.train(args, inputs, outputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    sec = res["seconds"]
+    n = res["n_rows"]
+    asset, _ = load_model(GOAL_ASSET + ".json", GOAL_ASSET + ".npz",
+                          device=device)
+    asset.eval()
+    mae_ref, _ = tg.strided_mae(asset, res["x_dev"], res["y_dev"], n)
+    same_centers = bool(torch.equal(res["model"].centers, asset.centers))
+    mae = res["mae"]
+    cut = ("every row of the lattice" if TABLE_STRIDE == 1 else
+           f"CUT to every {TABLE_STRIDE}th row of the lattice")
+    print(f"fit on the card (R=16, K=512, per-region heads): {n:,} rows "
+          f"({cut}); table arrays on the host {t_table:.2f} s, region "
+          f"spec and input scale (host numpy) {sec['region_spec']:.2f} s, "
+          f"upload {sec['upload']:.2f} s, choose_centers "
+          f"{sec['choose_centers']:.2f} s, box tests {sec['mask']:.2f} s, "
+          f"gram passes {sec['gram']:.2f} s over {sec['row_visits']:,} row "
+          f"visits, solves {sec['solve']:.2f} s; the whole of "
+          f"train_goal_mpc {wall:.2f} s = {n / wall:,.0f} rows/s; strided "
+          f"MAE speed {mae[0]:.4f} m/s steer {mae[1]:.4f} rad on "
+          f"{res['n_probe']:,} rows (the committed goal_mpc_pr on the same "
+          f"rows: {mae_ref[0]:.4f}, {mae_ref[1]:.4f}; limit "
+          f"{TOL_FIT_MAE_RATIO}x); centers equal the committed net's bit "
+          f"for bit: {same_centers}; kernel launches {launches}", flush=True)
+    state = res["model"].state_dict()
+    check(all(bool(torch.isfinite(v).all()) for v in state.values()),
+          "non-finite fitted weights")
+    check(bool((mae <= TOL_FIT_MAE_RATIO * mae_ref).all()),
+          f"fitted MAE {mae} over {TOL_FIT_MAE_RATIO}x the committed net's "
+          f"{mae_ref}")
+    check(launches["rbf_forward"] == -(-res["n_probe"] // tg.PROBE_CHUNK),
+          f"the probe's rbf_forward launches: {launches}")
+    return res, table, asset
+
+
+def phase_fit_eval(device, fit, table, asset):
+    """Phase 15: the fitted net saved, reloaded, and evaluated through both
+    kernels; the committed net beside it."""
+    import torch
+
+    from irbfn_tpu_torch.train import eval_goal_mpc as ev
+    from irbfn_tpu_torch.train import load_model
+
+    net, _ = load_model(fit["config_path"], fit["ckpt_dir"], device=device)
+    net.eval()
+    for k, v in fit["model"].state_dict().items():
+        check(bool(torch.equal(net.state_dict()[k], v)),
+              f"{k} changed through the checkpoint")
+    valid = table["valid"]
+    inputs, outputs = table["inputs"], table["outputs"]
+    if not valid.all():
+        inputs, outputs = inputs[valid], outputs[valid]
+    torch.cuda.synchronize()
+    reset_launches()
+    got = ev.evaluate(net, inputs, outputs, table["lows"], table["highs"],
+                      N_OFFGRID, 0, device=device)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ref = ev.evaluate(asset, inputs, outputs, table["lows"], table["highs"],
+                      N_OFFGRID, 0, device=device)
+    x = torch.as_tensor(got["off"], device=device)
+    with torch.no_grad():
+        y_kernel = net(x)
+    y_module = net(x)  # autograd records: the module path
+    check(y_module.requires_grad and not y_kernel.requires_grad,
+          "the forward's dispatch rule")
+    err = _max_err(y_kernel, y_module.detach())
+    n_tab = -(-got["n_table"] // ev.PROBE_CHUNK)
+    print(f"the fitted net through the kernels: table MAE speed "
+          f"{got['table_mae'][0]:.4f} steer {got['table_mae'][1]:.4f} "
+          f"({got['n_table']:,} rows; committed net {ref['table_mae'][0]:.4f}"
+          f", {ref['table_mae'][1]:.4f}); off-grid MAE speed "
+          f"{got['offgrid_mae'][0]:.4f} steer {got['offgrid_mae'][1]:.4f} on "
+          f"{got['n_offgrid']:,} of {N_OFFGRID} rows whose 1200-sweep solve "
+          f"converged (committed net {ref['offgrid_mae'][0]:.4f}, "
+          f"{ref['offgrid_mae'][1]:.4f}); kernel forward vs module-path "
+          f"forward max|err| {err:.2e} (tol {TOL_GOAL_NET}); kernel launches "
+          f"{launches}", flush=True)
+    check(launches["admm_solve"] == 1 and launches["rbf_forward"] == n_tab + 1,
+          f"eval launches {launches}: expected 1 admm_solve and {n_tab + 1} "
+          "rbf_forward")
+    check(err <= TOL_GOAL_NET, f"kernel vs module path: {err:.3e}")
+    check(bool(np.isfinite(got["table_mae"]).all()
+               and np.isfinite(got["offgrid_mae"]).all()), "non-finite MAE")
+    check(bool((got["table_mae"] <= TOL_FIT_MAE_RATIO
+                * ref["table_mae"]).all()),
+          f"table MAE {got['table_mae']} over {TOL_FIT_MAE_RATIO}x the "
+          f"committed net's {ref['table_mae']}")
+    return launches
+
+
+def phase_finetune(device, fit):
+    """Phase 16: Adam steps of the L1 loss from the fitted weights, through
+    ``train_epochs`` on a strided view of the resident table."""
+    import torch
+
+    from irbfn_tpu_torch.train import (create_trainer, load_model,
+                                       make_train_step, pred_l1_loss,
+                                       train_epochs)
+
+    net, _ = load_model(fit["config_path"], fit["ckpt_dir"], device=device)
+    n = fit["n_rows"]
+    rows = FINETUNE_STEPS * FINETUNE_BATCH
+    stride = max(n // rows, 1)
+    xs = fit["x_dev"][:n:stride][:rows]
+    ys = fit["y_dev"][:n:stride][:rows]
+    check(xs.shape[0] == rows, f"the table has {xs.shape[0]} of {rows} rows")
+    probe = xs[:FINETUNE_BATCH].contiguous()
+    with torch.no_grad():
+        before = net(probe)
+    trainer = create_trainer(net, lr=1e-4, decay_steps=FINETUNE_STEPS)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    train_epochs(trainer, make_train_step(pred_l1_loss, None), xs, ys,
+                 batch_size=FINETUNE_BATCH, epochs=1, seed=0,
+                 log_fn=lambda s, m: losses.append(m.loss), log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    with torch.no_grad():
+        after = net(probe)
+    e_module = _max_err(after, net.forward_module(probe).detach())
+    moved = _max_err(after, before)
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    print(f"fine-tune on the card: {trainer.step_count} Adam steps of the L1 "
+          f"loss at batch {FINETUNE_BATCH} in {wall:.2f} s = "
+          f"{1e3 * wall / trainer.step_count:.2f} ms per step, peak memory "
+          f"{peak / 2**30:.2f} GiB; loss mean of the first 20 steps "
+          f"{first:.5f}, of the last 20 {last:.5f} (min {losses.min():.5f}, "
+          f"max {losses.max():.5f}); a no-grad forward moved by "
+          f"{moved:.2e} and is {e_module:.2e} from the module path (tol "
+          f"{TOL_GOAL_NET}); kernel launches during the steps {launches}",
+          flush=True)
+    check(trainer.step_count == FINETUNE_STEPS == len(losses),
+          f"{trainer.step_count} steps, {len(losses)} losses")
+    check(launches == {"rbf_forward": 0, "admm_solve": 0},
+          f"a kernel was launched during the train steps: {launches}")
+    check(bool(np.isfinite(losses).all()), "non-finite fine-tune loss")
+    check(last <= first, f"the loss rose: {first:.5f} -> {last:.5f}")
+    check(moved > 0.0 and e_module <= TOL_GOAL_NET,
+          f"the forward after the steps: moved {moved:.2e}, {e_module:.2e} "
+          "from the module path")
+
+
+def phase_train_golden(device):
+    """Phase 18: the flagship's f32 loss, gradient norms and five Adam steps
+    on the card against the JAX package's f64 fixture."""
+    import torch
+
+    from irbfn_tpu_torch.train import (create_trainer, frenet_fullint_loss,
+                                       load_model, make_train_step)
+
+    with np.load(TRAIN_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    net, _ = load_model(ASSET + ".json", ASSET + ".npz", device=device)
+    x = torch.as_tensor(g["x"], device=device)
+    y = torch.as_tensor(g["y"], dtype=torch.float32, device=device)
+    dyn = torch.as_tensor(g["dyn"], dtype=torch.float32, device=device)
+    reset_launches()
+    loss, (pred, inte) = frenet_fullint_loss(net, x, y, dyn)
+    loss.backward()
+    rel = {k: abs(float(v.detach()) - float(g[k])) / abs(float(g[k]))
+           for k, v in (("loss", loss), ("pred_loss", pred),
+                        ("int_loss", inte))}
+    rel_grad = {}
+    for name, p in net.named_parameters():
+        want = float(g[f"grad_norm_{name}"])
+        rel_grad[name] = abs(float(p.grad.norm()) - want) / want
+    trainer = create_trainer(net, lr=float(g["lr"]),
+                             max_grad_norm=float(g["max_grad_norm"]))
+    step = make_train_step(frenet_fullint_loss, dyn)
+    losses = np.array([float(step(trainer, x, y).loss)
+                       for _ in g["step_losses"]])
+    rel_steps = np.abs(losses - g["step_losses"]) / np.abs(g["step_losses"])
+    launches = read_launches()
+    print(f"Frenet fine-tune step vs JAX f64 ({x.shape[0]} rows, lr "
+          f"{float(g['lr'])}, clip {float(g['max_grad_norm'])}; relative "
+          f"errors): " + ", ".join(f"{k} {e:.2e}" for k, e in rel.items())
+          + f" (tol {TOL_TRAIN_LOSS}); gradient norms "
+          + ", ".join(f"{k} {e:.2e}" for k, e in rel_grad.items())
+          + f" (tol {TOL_TRAIN_GRAD}); losses of 5 Adam steps "
+          + ", ".join(f"{v:.5f}" for v in losses) + " (JAX "
+          + ", ".join(f"{v:.5f}" for v in g["step_losses"]) + "), rel "
+          + ", ".join(f"{e:.2e}" for e in rel_steps)
+          + f"; kernel launches {launches}", flush=True)
+    bad = {k: e for k, e in rel.items() if not e <= TOL_TRAIN_LOSS}
+    bad.update({k: e for k, e in rel_grad.items()
+                if not e <= TOL_TRAIN_GRAD})
+    check(not bad, f"loss or gradient vs JAX f64: {bad}")
+    check(rel_steps[0] <= TOL_TRAIN_LOSS
+          and bool((rel_steps <= TOL_TRAIN_GRAD).all()),
+          f"Adam-step losses vs JAX f64: {rel_steps}")
+    check(launches == {"rbf_forward": 0, "admm_solve": 0},
+          f"a kernel was launched under autograd: {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -973,16 +1267,30 @@ def main() -> int:
     admm_err = phase_admm_vs_plain(device, lattice_goals)
     net = phase_goal_net(device, goal_golden)
     phase_goal_against_jax(device, goal_golden, net)
-    phase_lattice(device)
-    admm_launches, _ = phase_goal_loop(device, goal_golden, "solver", net)
-    phase_goal_loop(device, goal_golden, "net", net)
+    _, _, lattice = phase_lattice(device)
+    admm_launches = phase_goal_loop(device, goal_golden, "solver",
+                                    net)["launches"]
+    net_loop = phase_goal_loop(device, goal_golden, "net", net)
     admm_times = phase_goal_times(device, lattice_goals, net, goal_golden)
+    # the fit-and-train path
+    with tempfile.TemporaryDirectory() as out_dir:
+        fit, table, asset = phase_fit(device, lattice, out_dir)
+        del lattice
+        chain_launches = phase_fit_eval(device, fit, table, asset)
+        del table
+        phase_finetune(device, fit)
+    phase_goal_loop(device, goal_golden, "net", fit["model"].eval(),
+                    against=net_loop)
+    del fit
+    phase_train_golden(device)
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [
         dict(KERNELS["rbf_forward"], launches=rbf_launches,
+             launches_fit_eval=chain_launches["rbf_forward"],
              max_abs_err=err_1024, **rbf_times),
         dict(KERNELS["admm_solve"], launches=admm_launches,
+             launches_fit_eval=chain_launches["admm_solve"],
              max_abs_err=admm_err, **admm_times)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,17 @@
 """irbfn_tpu_torch — the PyTorch + CUDA port of ``irbfn_tpu``.
 
-The learned-planner serving path runs here: the WCRBF net (its forward is
-one hand-written Hopper kernel, ``ops/csrc/rbf_forward.cu``, on CUDA
-tensors), the Frenet planner, and the batched closed-loop simulator. Each
-subpackage mirrors the JAX package's layout and function names:
+The learned-planner serving path runs here (the WCRBF net, whose no-grad
+forward is one hand-written Hopper kernel, ``ops/csrc/rbf_forward.cu``, on
+CUDA tensors; the Frenet planner; the batched closed-loop simulator), the
+goal-MPC path (table generation and the planner, on the ADMM kernel), and
+the fit-and-train path that makes the nets (closed-form per-region fit,
+Adam trainer and losses, checkpoints). Each subpackage mirrors the JAX
+package's layout and function names:
 
 - ``irbfn_tpu_torch.dynamics`` — vehicle parameters, single-track and
-  Frenet dynamics.
-- ``irbfn_tpu_torch.models``   — the basis registry and ``WCRBFNet``.
+  Frenet dynamics, spirals.
+- ``irbfn_tpu_torch.models``   — the basis registry, the four model classes
+  and the closed-form fit (``models/fit.py``).
 - ``irbfn_tpu_torch.ops``      — the fused RBF forward and the goal-family
   ADMM solve (CUDA kernels and their plain PyTorch versions).
 - ``irbfn_tpu_torch.parallel`` — lattice generation on one device and the
@@ -15,7 +19,10 @@ subpackage mirrors the JAX package's layout and function names:
 - ``irbfn_tpu_torch.planning`` — ``IRBFNFrenetPlanner``, ``GoalMPCPlanner``.
 - ``irbfn_tpu_torch.sim``      — track, Frenet frame, ``TrackEnv``.
 - ``irbfn_tpu_torch.solvers``  — the goal-MPC condensed box QP.
-- ``irbfn_tpu_torch.train``    — config and weights from JSON + numpy.
+- ``irbfn_tpu_torch.train``    — losses, the trainer, checkpoints as JSON +
+  numpy files, clustering, and the ``python -m`` entry points
+  ``train_goal_mpc``, ``eval_goal_mpc``, ``train_frenet``, ``eval_offline``.
+- ``irbfn_tpu_torch.utils``    — flag groups, the metric logger, profiling.
 
 Float32 matrix products run in full f32 wherever the port runs: the
 closed-form heads carry large cancelling coefficients that TF32 would

@@ -9,14 +9,17 @@ Port of ``irbfn_tpu/dynamics/frenet.py``:
 - low-speed kinematic model, and the speed switch at ``V_SWITCH``.
 
 ``eps_denom`` stays None on the serving path: the planner's rollout sees
-the exact ``1 - ey*curv`` denominator.
+the exact ``1 - ey*curv`` denominator. Training rollouts
+(``integrate_frenet(..., eps_denom=0.05)`` in ``train/trainer.py``) floor
+its magnitude, because an early-epoch net can push ey past the path's
+curvature center, and one singular row would poison Adam's state for good.
 """
 
 from __future__ import annotations
 
 import torch
 
-from irbfn_tpu_torch.dynamics.params import G, VehicleParams
+from irbfn_tpu_torch.dynamics.params import G, VehicleParams, as_params
 
 # state indices
 IS, IEY, IDELTA, IVX, IVY, IWZ, IEPSI = range(7)
@@ -150,7 +153,7 @@ def frenet_rollout(x0: torch.Tensor, controls: torch.Tensor,
     """
     if integrator not in ("euler", "rk4"):
         raise ValueError(f"unknown integrator {integrator!r}")
-    dt = p.dt[..., None] if p.dt.ndim > 0 else p.dt
+    dt = _dt(p)
 
     def deriv(x, u):
         return frenet_deriv(x, u, curv, p, blend=blend, eps_denom=eps_denom)
@@ -169,3 +172,41 @@ def frenet_rollout(x0: torch.Tensor, controls: torch.Tensor,
             x = x + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
         states.append(x)
     return torch.stack(states, dim=-2)
+
+
+def _dt(p: VehicleParams) -> torch.Tensor:
+    """dt may be 0-dim or per lane; add a state-dim axis to a per-lane dt."""
+    return p.dt[..., None] if p.dt.ndim > 0 else p.dt
+
+
+def integrate_frenet(x_and_u: torch.Tensor, params_vec, horizon: int = 5,
+                     eps_denom: float | None = None) -> torch.Tensor:
+    """Reference-ABI 5-step low-speed Frenet rollout: input rows
+    ``[s, ey, delta, vx, vy, wz, epsi, curv, accl_0.., sv_0..]`` (control
+    tail column-major); returns ``(batch, T, 8)`` whose last column carries
+    the (constant) curvature, the reference's 8-dim carry."""
+    p = as_params(params_vec, x_and_u)
+    x0 = x_and_u[..., :FRENET_STATE_DIM]
+    curv = x_and_u[..., FRENET_STATE_DIM]
+    tail = x_and_u[..., FRENET_STATE_DIM + 1:]
+    controls = torch.stack([tail[..., :horizon],
+                            tail[..., horizon:2 * horizon]], dim=-1)
+    states = frenet_rollout(x0, controls, curv, p, blend="ls",
+                            integrator="euler", eps_denom=eps_denom)
+    curv_col = curv[..., None, None].expand(states.shape[:-1] + (1,))
+    return torch.cat([states, curv_col.to(states.dtype)], dim=-1)
+
+
+def frenet_onestep(x_u: torch.Tensor, params_vec) -> torch.Tensor:
+    """Reference-ABI one-step reduced-state update: input rows
+    ``[ey, delta, vx, vy, wz, epsi, curv, <unused>, accl, sv]``; returns the
+    6-dim reduced next state ``[ey, delta, vx, vy, wz, epsi]`` (the s column
+    is dropped)."""
+    p = as_params(params_vec, x_u)
+    zeros = torch.zeros_like(x_u[..., 0])
+    x = torch.stack([zeros, x_u[..., 0], x_u[..., 1], x_u[..., 2],
+                     x_u[..., 3], x_u[..., 4], x_u[..., 5]], dim=-1)
+    curv = x_u[..., 6]
+    u = x_u[..., 8:10]
+    x_new = x + frenet_ls_deriv(x, u, curv, p) * _dt(p)
+    return x_new[..., 1:]

@@ -67,6 +67,16 @@ class VehicleParams:
         return dataclasses.replace(self, **changes)
 
 
+def as_params(params, ref: torch.Tensor) -> VehicleParams:
+    """``params`` as ``VehicleParams`` for a rollout of ``ref``: a
+    ``VehicleParams`` passes through; the reference's 13-float vector (the
+    training losses' ``dyn_params``) is moved to ``ref``'s device. Its own
+    dtype is kept: an f64 vector lifts an f32 rollout, as in the reference."""
+    if isinstance(params, VehicleParams):
+        return params
+    return VehicleParams.from_vector(torch.as_tensor(params).to(ref.device))
+
+
 def _make(vals, dtype, device) -> VehicleParams:
     device = resolve_device(device)
     return VehicleParams(*[torch.as_tensor(v, dtype=dtype, device=device)

@@ -1,49 +1,71 @@
-"""Model layer: the basis registry and the WCRBFNet."""
+"""Model layer: the basis registry and the WCRBFNet model family."""
 
 from irbfn_tpu_torch.models.kernels import BASIS_FUNCTIONS, get_basis
 from irbfn_tpu_torch.models.wcrbf import (
+    MLP,
+    ClusterWCRBFNet,
+    DeeperWCRBFNet,
     WCRBFNet,
     build_region_bounds,
+    overlapping_segments,
     rbf_distances,
     region_activation,
+    region_features,
 )
 
-_NOT_PORTED = ("DeeperWCRBFNet", "MLP", "ClusterWCRBFNet")
+MODEL_CLASSES = {
+    "WCRBFNet": WCRBFNet,
+    "DeeperWCRBFNet": DeeperWCRBFNet,
+    "MLP": MLP,
+    "ClusterWCRBFNet": ClusterWCRBFNet,
+}
 
 
-def from_config(config: dict, dtype=None, device=None,
-                model_class: str = "WCRBFNet") -> WCRBFNet:
+def from_config(config: dict, dtype=None, device=None, centers=None,
+                model_class: str = "WCRBFNet", seed=None):
     """Rebuild a model from a trainer-written config dict (the YAML schema
     of ``irbfn_tpu.train.save_config``, read here from JSON), on ``device``
-    (None: the card)."""
+    (None: the card). ``centers`` warm-starts a WCRBFNet's center bank and
+    ``seed`` draws initial weights; without them every weight is zero, to
+    be loaded."""
     import torch
 
-    cls = config.get("model_class", model_class)
-    if cls in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cls} is not ported to PyTorch yet (ROADMAP.md, 'Modules to "
-            "port', item 3: models)")
-    if cls != "WCRBFNet":
-        raise KeyError(f"unknown model_class {cls!r}")
-    # fixed_centers / fixed_width only freeze parameters in training; the
-    # forward is the same, and the port does not train yet
-    return WCRBFNet(
+    name = config.get("model_class", model_class)
+    if name not in MODEL_CLASSES:
+        raise KeyError(f"unknown model_class {name!r}; available: "
+                       f"{sorted(MODEL_CLASSES)}")
+    cls = MODEL_CLASSES[name]
+    kwargs = dict(
         in_features=config["in_features"],
         out_features=config["out_features"],
         num_kernels=config["num_kernels"],
         basis_func=config["basis_func"],
         num_regions=config["num_regions"],
-        lower_bounds=config["lower_bounds"],
-        upper_bounds=config["upper_bounds"],
-        dimension_ranges=config["dimension_ranges"],
-        activation_idx=config["activation_idx"],
-        delta=config["delta"],
-        input_scale=config.get("input_scale"),
-        head_mode=config.get("head_mode", "shared"),
         dtype=torch.float32 if dtype is None else dtype,
-        device=device,
+        device=device, seed=seed,
     )
+    if cls is not ClusterWCRBFNet:
+        kwargs.update(
+            lower_bounds=config["lower_bounds"],
+            upper_bounds=config["upper_bounds"],
+            dimension_ranges=config["dimension_ranges"],
+            activation_idx=config["activation_idx"],
+            delta=config["delta"],
+        )
+    scale = config.get("input_scale")
+    if scale is not None and cls is not MLP:
+        kwargs["input_scale"] = tuple(float(v) for v in scale)
+    if cls is WCRBFNet:
+        kwargs.update(
+            centers=centers,
+            fixed_centers=config.get("fixed_centers", False),
+            fixed_width=config.get("fixed_width", False),
+            head_mode=config.get("head_mode", "shared"),
+        )
+    return cls(**kwargs)
 
 
-__all__ = ["BASIS_FUNCTIONS", "get_basis", "WCRBFNet", "build_region_bounds",
-           "rbf_distances", "region_activation", "from_config"]
+__all__ = ["BASIS_FUNCTIONS", "get_basis", "MODEL_CLASSES", "WCRBFNet",
+           "DeeperWCRBFNet", "MLP", "ClusterWCRBFNet", "build_region_bounds",
+           "overlapping_segments", "rbf_distances", "region_activation",
+           "region_features", "from_config"]

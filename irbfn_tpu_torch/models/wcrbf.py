@@ -1,15 +1,29 @@
-"""Region-partitioned RBF network (WCRBFNet).
+"""Region-partitioned RBF networks (the WCRBFNet model family).
 
-Port of ``irbfn_tpu/models/wcrbf.py``. The network is: a smooth box
+Port of ``irbfn_tpu/models/wcrbf.py``. A WCRBFNet is: a smooth box
 indicator gamma over the regions, per-region gaussian (or other basis) RBF
 features of the scaled distance ``||s*(x - c)|| / exp(log_sig)``, and a
 linear head: one shared head over ``sum_r gamma_r phi_r``, or per-region
-heads over normalised gammas. ``WCRBFNet.forward`` goes through the fused
-op ``ops/rbf.py:wcrbf_forward`` (the CUDA kernel on the card).
+heads over normalised gammas.
 
-``region_activation`` and ``rbf_distances`` are the flax path's pieces, kept
-for the parity tests. ``DeeperWCRBFNet``, ``MLP`` and ``ClusterWCRBFNet``
-are still to be ported.
+``WCRBFNet.forward`` has two routes, and the grad mode alone picks one:
+
+- when autograd records and the input or any parameter requires a gradient,
+  the **module path** (``forward_module``): plain differentiable tensor
+  operations on whatever device the tensors are, the counterpart of the
+  flax module that JAX training differentiates;
+- otherwise the **fused op** ``ops/rbf.py:wcrbf_forward``, which on a CUDA
+  tensor launches the hand-written kernel (or raises) and on a CPU tensor
+  runs its plain version.
+
+Neither route is a fallback for the other: a kernel that cannot build or
+launch raises.
+
+``DeeperWCRBFNet`` (an MLP head over the blended features), ``MLP`` (the
+plain baseline) and ``ClusterWCRBFNet`` (a learned softmax gate; returns
+``(y, logits)``) run through plain tensor operations only, as they do in
+the JAX package. Every Dense weight keeps flax's ``(in, out)`` layout, so a
+JAX checkpoint maps one to one (``train/checkpoints.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +54,22 @@ def build_region_bounds(lower_bounds, upper_bounds, dimension_ranges,
     return lb, ub
 
 
+def overlapping_segments(values, n_segments: int, num_overlap: int = 1):
+    """Per-dimension segment bounds where neighbouring segments overlap by
+    ``num_overlap`` grid values. Returns (lower, upper) lists of length
+    n_segments."""
+    values = np.sort(np.unique(np.asarray(values)))
+    edges = np.linspace(0, len(values) - 1, n_segments + 1, dtype=int)
+    lower, upper = [], []
+    for s in range(n_segments):
+        lo_i = max(0, edges[s] - (num_overlap if s > 0 else 0))
+        hi_i = min(len(values) - 1,
+                   edges[s + 1] + (num_overlap if s < n_segments - 1 else 0))
+        lower.append(float(values[lo_i]))
+        upper.append(float(values[hi_i]))
+    return lower, upper
+
+
 def region_activation(x, lb, ub, delta, activation_idx):
     """Smooth box indicator gamma over the split dims, ``(B, F) -> (B, R)``;
     lb/ub (R, D), delta (D,) for the D dims in ``activation_idx``."""
@@ -56,7 +86,86 @@ def rbf_distances(x, centers, log_sigs, input_scale=None):
     return _rbf.center_distances(x, centers) / torch.exp(log_sigs)[None]
 
 
-class WCRBFNet(nn.Module):
+def region_features(x, region_weights, centers, log_sigs, basis_func,
+                    input_scale=None, head_mode: str = "shared"):
+    """Region-blended RBF features, ``(B, F) -> (B, K)`` for ``"shared"``
+    (``sum_r w_r phi_r``) or ``(B, R*K + R)`` for ``"per_region"`` (block
+    features ``[w_r phi_rk ; w_r]``: a Dense head over them is a per-region
+    linear model blended by the region weights). Materialises the (B, R, K)
+    basis tensor; differentiable in every argument."""
+    phi = BASIS_FUNCTIONS[basis_func](
+        rbf_distances(x, centers, log_sigs, input_scale=input_scale))
+    if head_mode == "per_region":
+        weighted = region_weights[:, :, None] * phi  # (B, R, K)
+        return torch.cat([weighted.reshape(x.shape[0], -1), region_weights],
+                         dim=-1)
+    return torch.einsum("br,brk->bk", region_weights, phi)
+
+
+def _dense_init(gen, fan_in: int, fan_out: int) -> torch.Tensor:
+    """flax's default Dense kernel initialiser (LeCun normal: a normal of
+    variance 1/fan_in truncated at two standard deviations), ``(in, out)``."""
+    w = torch.empty((fan_in, fan_out), dtype=torch.float64)
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=gen)
+
+
+def _check_basis(basis_func: str):
+    if basis_func not in BASIS_FUNCTIONS:
+        raise KeyError(f"unknown basis function {basis_func!r}; "
+                       f"available: {sorted(BASIS_FUNCTIONS)}")
+
+
+class _RBFModule(nn.Module):
+    """What the four model classes share: Dense layers as ``<name>_kernel``
+    (in, out) and ``<name>_bias`` parameters, the center bank, and seeded
+    initial values."""
+
+    def _add_dense(self, name: str, fan_in: int, fan_out: int, kw: dict):
+        setattr(self, f"{name}_kernel",
+                nn.Parameter(torch.zeros((fan_in, fan_out), **kw)))
+        setattr(self, f"{name}_bias",
+                nn.Parameter(torch.zeros((fan_out,), **kw)))
+
+    def _dense(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        return (h @ getattr(self, f"{name}_kernel")
+                + getattr(self, f"{name}_bias"))
+
+    def _add_core(self, R: int, K: int, F: int, kw: dict):
+        self.centers = nn.Parameter(torch.zeros((R, K, F), **kw))
+        self.log_sigs = nn.Parameter(torch.zeros((R, K), **kw))
+
+    def _register_constant(self, name: str, val, kw: dict):
+        """A config constant: a buffer that is not part of the state_dict."""
+        self.register_buffer(
+            name, None if val is None else
+            torch.as_tensor(np.asarray(val, np.float64), **kw),
+            persistent=False)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int, centers=None):
+        """Seeded initial values, the flax defaults: Dense kernels LeCun
+        normal and biases zero; centers unit normal, or ``centers`` ((K, F),
+        shared by every region, or (R, K, F)) as a warm start; log-widths
+        zero. Drawn on the host from ``torch.Generator().manual_seed(seed)``
+        whatever the module's device."""
+        gen = torch.Generator().manual_seed(int(seed))
+        for name, p in self.named_parameters():
+            if name.endswith("_kernel"):
+                p.copy_(_dense_init(gen, *p.shape))
+            elif name == "centers" and centers is None:
+                p.copy_(torch.randn(p.shape, generator=gen,
+                                    dtype=torch.float64))
+            elif name == "centers":
+                c = torch.as_tensor(np.asarray(centers, np.float64))
+                p.copy_(c.expand(p.shape))
+            else:
+                p.zero_()
+        return self
+
+
+class WCRBFNet(_RBFModule):
     """Piecewise (region-partitioned) RBF network with a linear head.
 
     Parameters keep the flax layout, so a JAX checkpoint maps one to one
@@ -64,6 +173,14 @@ class WCRBFNet(nn.Module):
     ``log_sigs`` (R, K), ``head_kernel`` (n_feat, O) and ``head_bias`` (O,),
     where n_feat is K for ``head_mode="shared"`` and R*K + R for
     ``"per_region"`` (block features ``[gamma_r phi_rk ; gamma_r]``).
+
+    ``centers`` ((K, F) or (R, K, F)) warm-starts the center bank;
+    ``fixed_centers`` freezes it and ``fixed_width`` the log-widths as well
+    (frozen tensors stay parameters of the ``state_dict`` with
+    ``requires_grad=False``, and a checkpoint keeps them in flax's
+    ``constants`` collection). ``seed`` draws initial values
+    (``reset_parameters``); without it every weight starts at zero, to be
+    loaded or fitted.
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -74,11 +191,10 @@ class WCRBFNet(nn.Module):
                  activation_idx: Sequence[int], delta: Sequence[float],
                  input_scale: Optional[Sequence[float]] = None,
                  head_mode: str = "shared", dtype=torch.float32,
-                 device=None):
+                 device=None, centers=None, fixed_centers: bool = False,
+                 fixed_width: bool = False, seed: Optional[int] = None):
         super().__init__()
-        if basis_func not in BASIS_FUNCTIONS:
-            raise KeyError(f"unknown basis function {basis_func!r}; "
-                           f"available: {sorted(BASIS_FUNCTIONS)}")
+        _check_basis(basis_func)
         if head_mode not in ("shared", "per_region"):
             raise ValueError(f"unknown head_mode {head_mode!r}")
         self.in_features = int(in_features)
@@ -91,11 +207,8 @@ class WCRBFNet(nn.Module):
         R, K, F = self.num_regions, self.num_kernels, self.in_features
         n_feat = R * K + R if head_mode == "per_region" else K
         kw = dict(dtype=dtype, device=resolve_device(device))
-        self.centers = nn.Parameter(torch.zeros((R, K, F), **kw))
-        self.log_sigs = nn.Parameter(torch.zeros((R, K), **kw))
-        self.head_kernel = nn.Parameter(torch.zeros((n_feat, out_features),
-                                                    **kw))
-        self.head_bias = nn.Parameter(torch.zeros((out_features,), **kw))
+        self._add_core(R, K, F, kw)
+        self._add_dense("head", n_feat, out_features, kw)
 
         # region gate embedded at full feature width: dims that are not
         # split get +-1e30 bounds (their gate factor is exactly 1)
@@ -108,16 +221,16 @@ class WCRBFNet(nn.Module):
             lb_full[:, d] = lb[:, j]
             ub_full[:, d] = ub[:, j]
             delta_full[d] = float(delta[j])
-        # (config constants, not part of the state_dict)
         for name, val in (("gate_lb", lb_full), ("gate_ub", ub_full),
                           ("gate_delta", delta_full),
                           ("input_scale", input_scale)):
-            self.register_buffer(
-                name, None if val is None else
-                torch.as_tensor(np.asarray(val, np.float64), **kw),
-                persistent=False)
+            self._register_constant(name, val, kw)
 
         self._operands = (None, None)  # (key, RBFOperands) of the last pack
+        if seed is not None or centers is not None:
+            self.reset_parameters(0 if seed is None else seed, centers)
+        self.centers.requires_grad_(not fixed_centers)
+        self.log_sigs.requires_grad_(not fixed_width)
 
     def kernel_operands(self) -> "_rbf.RBFOperands":
         """``ops/rbf.py:wcrbf_params_to_kernel(self)``, packed once and kept
@@ -137,7 +250,138 @@ class WCRBFNet(nn.Module):
                 self._operands = (key, _rbf.wcrbf_params_to_kernel(self))
         return self._operands[1]
 
+    def forward_module(self, x: torch.Tensor) -> torch.Tensor:
+        """The module path: gate, (B, R, K) features and Dense head as plain
+        differentiable tensor operations, on any device."""
+        act = list(self.activation_idx)
+        gamma = _rbf.box_gate(x[:, act], self.gate_lb[:, act].to(x.dtype),
+                              self.gate_ub[:, act].to(x.dtype),
+                              self.gate_delta[act].to(x.dtype))
+        if self.head_mode == "per_region":
+            gamma = gamma / (gamma.sum(-1, keepdim=True) + 1e-9)
+        feats = region_features(x, gamma, self.centers, self.log_sigs,
+                                self.basis_func, self.input_scale,
+                                self.head_mode)
+        return self._dense("head", feats)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, F) -> (B, O)``. When autograd records and ``x`` or any
+        parameter requires a gradient: the module path. Otherwise the fused
+        op, which launches the CUDA kernel on a CUDA tensor or raises. The
+        grad mode decides, never a failure of either route."""
+        if torch.is_grad_enabled() and (
+                x.requires_grad
+                or any(p.requires_grad for p in self.parameters())):
+            return self.forward_module(x)
         if self.input_scale is not None:
             x = x * self.input_scale.to(x.dtype)
         return _rbf.wcrbf_forward(x, self.kernel_operands())
+
+
+def _geometric_gate(module, lower_bounds, upper_bounds, dimension_ranges,
+                    activation_idx, delta, kw):
+    lb, ub = build_region_bounds(lower_bounds, upper_bounds,
+                                 dimension_ranges, activation_idx)
+    module.activation_idx = tuple(int(d) for d in activation_idx)
+    for name, val in (("gate_lb", lb), ("gate_ub", ub), ("gate_delta", delta)):
+        module._register_constant(name, val, kw)
+
+
+class DeeperWCRBFNet(_RBFModule):
+    """WCRBFNet features (shared blend) with a 2x Dense(hidden)+relu MLP
+    head: ``pre1``, ``pre2``, ``head``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 num_kernels: int, basis_func: str, num_regions: int,
+                 lower_bounds, upper_bounds, dimension_ranges,
+                 activation_idx, delta, hidden: int = 64,
+                 input_scale: Optional[Sequence[float]] = None,
+                 dtype=torch.float32, device=None,
+                 seed: Optional[int] = None):
+        super().__init__()
+        _check_basis(basis_func)
+        self.basis_func = basis_func
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        self._add_core(int(num_regions), int(num_kernels), int(in_features),
+                       kw)
+        self._add_dense("pre1", int(num_kernels), hidden, kw)
+        self._add_dense("pre2", hidden, hidden, kw)
+        self._add_dense("head", hidden, int(out_features), kw)
+        _geometric_gate(self, lower_bounds, upper_bounds, dimension_ranges,
+                        activation_idx, delta, kw)
+        self._register_constant("input_scale", input_scale, kw)
+        if seed is not None:
+            self.reset_parameters(seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gamma = region_activation(x, self.gate_lb.to(x.dtype),
+                                  self.gate_ub.to(x.dtype),
+                                  self.gate_delta.to(x.dtype),
+                                  self.activation_idx)
+        feats = region_features(x, gamma, self.centers, self.log_sigs,
+                                self.basis_func, self.input_scale)
+        h = torch.relu(self._dense("pre1", feats))
+        h = torch.relu(self._dense("pre2", h))
+        return self._dense("head", h)
+
+
+class MLP(_RBFModule):
+    """Plain MLP baseline with the WCRBF constructor signature: widths
+    K/2 -> K -> K/2 -> out (``dense0`` .. ``dense3``). The region arguments
+    are accepted and unused."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 num_kernels: int, basis_func=None, num_regions: int = 1,
+                 lower_bounds=(), upper_bounds=(), dimension_ranges=(),
+                 activation_idx=(), delta=(), input_scale=None,
+                 dtype=torch.float32, device=None,
+                 seed: Optional[int] = None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        K = int(num_kernels)
+        widths = (int(in_features), K // 2, K, K // 2, int(out_features))
+        for i in range(4):
+            self._add_dense(f"dense{i}", widths[i], widths[i + 1], kw)
+        if seed is not None:
+            self.reset_parameters(seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(3):
+            h = torch.relu(self._dense(f"dense{i}", h))
+        return self._dense("dense3", h)
+
+
+class ClusterWCRBFNet(_RBFModule):
+    """Learned-gate variant: a Dense+softmax ``gate`` replaces the geometric
+    region indicator, and the logits are returned for the auxiliary
+    cluster-classification loss: ``forward`` gives ``(y, logits)``.
+
+    ``input_scale`` makes the kernel distances anisotropic (None: the raw
+    isotropic distance). With R = 500 regions the (B, R, K) feature tensor
+    is what bounds the batch: chunk probes at 8192 rows.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 num_kernels: int, basis_func: str, num_regions: int,
+                 input_scale: Optional[Sequence[float]] = None,
+                 dtype=torch.float32, device=None,
+                 seed: Optional[int] = None):
+        super().__init__()
+        _check_basis(basis_func)
+        self.basis_func = basis_func
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        R, K, F = int(num_regions), int(num_kernels), int(in_features)
+        self._add_core(R, K, F, kw)
+        self._add_dense("gate", F, R, kw)
+        self._add_dense("head", K, int(out_features), kw)
+        self._register_constant("input_scale", input_scale, kw)
+        if seed is not None:
+            self.reset_parameters(seed)
+
+    def forward(self, x: torch.Tensor):
+        logits = self._dense("gate", x)
+        weights = torch.softmax(logits, dim=-1)
+        feats = region_features(x, weights, self.centers, self.log_sigs,
+                                self.basis_func, self.input_scale)
+        return self._dense("head", feats), logits

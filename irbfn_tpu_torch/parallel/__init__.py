@@ -4,7 +4,9 @@
 from irbfn_tpu_torch.parallel.datagen import (
     GridSpec,
     build_lattice,
+    controls_block,
     solve_lattice,
 )
 
-__all__ = ["GridSpec", "build_lattice", "solve_lattice"]
+__all__ = ["GridSpec", "build_lattice", "controls_block",
+           "solve_lattice"]

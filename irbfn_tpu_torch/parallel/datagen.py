@@ -5,8 +5,9 @@ spec becomes meshgrid rows ('ij' order, so the table layout matches the
 reference's), and ``solve_lattice`` runs a batched solver over them in
 chunks. On the card, chunk i's results are copied back into pinned host
 buffers while chunk i+1 is already queued, so the device does not wait for
-those copies. Sharding across cards, ``TableSolution``, ``frenet_table`` and
-``controls_block`` are still to be ported.
+those copies. ``controls_block`` flattens a table's control sequences into
+the layout the nets are trained on. Sharding across cards, ``TableSolution``
+and ``frenet_table`` are still to be ported.
 """
 
 from __future__ import annotations
@@ -99,3 +100,22 @@ def solve_lattice(solve_fn: Callable, rows: np.ndarray,
     if not outs:
         raise ValueError("solve_lattice needs at least one row")
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def controls_block(outputs: np.ndarray) -> np.ndarray:
+    """Flatten a table's (N, T, 2) [accel, steer-vel] control sequences into
+    the BLOCK layout ``[a_0..a_{T-1}, sv_0..sv_{T-1}]`` (N, 2T).
+
+    This is the net-output and rollout layout: the trainers unpack
+    ``outputs[:, :, 0]`` / ``[:, :, 1]`` and concatenate the blocks, and the
+    dynamics adapters reshape controls column-major. A plain
+    ``reshape(N, -1)`` on the npz INTERLEAVES [a0, sv0, a1, sv1, ...];
+    consumed as block layout, that reads sv_2 where sv_0 belongs (a
+    2-control-period steering delay in the planner). Rows of -999
+    sentinels (infeasible solves) stay rows of -999. Already-flat (N, 2T)
+    arrays pass through unchanged."""
+    outputs = np.asarray(outputs)
+    if outputs.ndim == 2:
+        return outputs
+    n, t, c = outputs.shape
+    return outputs.transpose(0, 2, 1).reshape(n, c * t)

@@ -10,9 +10,15 @@ planner in solver and in net mode with ``goal_mpc_pr``):
 - under ``torch.profiler``, the unsynchronised time per step, the device
   time per step, the device's idle share and the kernel launches per step;
 
-and for one reference lattice family (2,642,368 goals, 600 sweeps, the
-table generator's chunks) the wall time, the device time and the ADMM
-kernel's share of it.
+for one reference lattice family (2,642,368 goals, 600 sweeps, the table
+generator's chunks) the wall time, the device time and the ADMM kernel's
+share of it; and for the fit-and-train path on that family's table
+(``goal_mpc_pr``'s shape: R=16, K=512, F=5, O=2):
+
+- a train step of the L1 loss at batch 8192 through ``train_epochs``: ms
+  per step, device ms per step, idle share, launches per step, and the
+  device time by kernel;
+- one region's gram pass of ``fit_per_region``: the same, per chunk.
 """
 
 from __future__ import annotations
@@ -30,7 +36,11 @@ from irbfn_tpu_torch.dynamics import VehicleParams, f1tenth_params
 from irbfn_tpu_torch.parallel import gen_goal_mpc_table as gen
 from irbfn_tpu_torch.planning import GoalMPCPlanner, IRBFNFrenetPlanner
 from irbfn_tpu_torch.sim import TrackEnv, oval_track
-from irbfn_tpu_torch.train import input_bounds_from_config, load_model
+from irbfn_tpu_torch.models import build_region_bounds
+from irbfn_tpu_torch.models.fit import device_table, fit_per_region
+from irbfn_tpu_torch.train import (create_trainer, input_bounds_from_config,
+                                   load_model, make_train_step, pred_l1_loss,
+                                   train_epochs)
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
@@ -91,8 +101,16 @@ def policies(device):
                                                              goal_net)))}
 
 
+def _kernels(prof) -> list:
+    """The profile's device-side rows (kernels and device copies). The
+    host-side operator rows carry their kernels' device time a second time:
+    summing every row would count it twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def _device_ms(prof) -> float:
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return sum(e.self_device_time_total for e in _kernels(prof)) / 1e3
 
 
 def profile_loop(env, sim, policy, steps, warmup):
@@ -133,16 +151,87 @@ def profile_family(device):
                              ProfilerActivity.CUDA]) as prof:
         res = gen.solve_table(args)
         torch.cuda.synchronize()
-    kernel = sum(e.self_device_time_total for e in prof.key_averages()
+    kernel = sum(e.self_device_time_total for e in _kernels(prof)
                  if "admm_solve_kernel" in e.key) / 1e3
-    return 1e3 * res["seconds"], _device_ms(prof), kernel
+    return 1e3 * res["seconds"], _device_ms(prof), kernel, res
+
+
+def _top_device(prof, n=8) -> str:
+    """The ``n`` kernels with the most device time, as 'name share'."""
+    rows = sorted(_kernels(prof), key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in rows) or 1
+    return ", ".join(
+        f"{e.key[:60]} x{e.count} "
+        f"{100 * e.self_device_time_total / total:.0f}%" for e in rows[:n])
+
+
+def _profiled(fn, units: int):
+    """``fn()`` once warm, then under the profiler: (wall ms, device ms,
+    idle share, launches) per unit, and the top operators."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
+    dev = _device_ms(prof)
+    return (wall / units, dev / units, 1.0 - dev / wall, launches / units,
+            _top_device(prof))
+
+
+def profile_fit_and_train(device, family, steps, batch=8192):
+    """A train step and a gram pass at ``goal_mpc_pr``'s shape on one
+    family's table."""
+    table = gen.table_arrays(family)
+    inputs = table["inputs"][table["valid"]]
+    outputs = table["outputs"][table["valid"]]
+    net, config = load_model(os.path.join(ASSETS, "goal_mpc_pr.json"),
+                             os.path.join(ASSETS, "goal_mpc_pr.npz"),
+                             device=device)
+    x_dev, y_dev, n = device_table(inputs, outputs, device=device)
+    rows = steps * batch
+    trainer = create_trainer(net, lr=1e-6)
+    step_fn = make_train_step(pred_l1_loss, None)
+    train = _profiled(lambda: train_epochs(
+        trainer, step_fn, x_dev[:rows], y_dev[:rows], batch_size=batch,
+        epochs=1, seed=0), steps)
+    lb, ub = build_region_bounds(config["lower_bounds"],
+                                 config["upper_bounds"],
+                                 config["dimension_ranges"],
+                                 config["activation_idx"])
+    timings = {}
+
+    r = slice(len(lb) - 1, len(lb))  # the last region: its box holds v_car = 8
+
+    def one_region():  # one region's box, in chunks of 65,536 rows
+        timings.clear()
+        fit_per_region(inputs, outputs, net.centers.detach()[r],
+                       net.log_sigs.detach()[r], lb[r], ub[r],
+                       config["delta"], tuple(config["activation_idx"]),
+                       config["basis_func"],
+                       input_scale=tuple(config["input_scale"]),
+                       x_dev=x_dev, y_dev=y_dev, timings=timings)
+
+    one_region()
+    chunks = -(-timings["row_visits"] // 65536)
+    return train, _profiled(one_region, chunks), timings["row_visits"]
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--warmup", type=int, default=20)
+    p.add_argument("--parts", type=str, default="loops,fit",
+                   help="what to profile: the closed loops, the lattice "
+                        "family with the fit and train step on its table")
     args = p.parse_args(argv)
+    parts = set(args.parts.split(","))
+    if not parts <= {"loops", "fit"}:
+        p.error(f"--parts takes loops and fit, not {args.parts!r}")
     device = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -150,7 +239,8 @@ def main(argv=None):
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip() or torch.cuda.get_device_name(0), flush=True)
     lanes = load_lanes()
-    for name, (mode, policy) in policies(device).items():
+    for name, (mode, policy) in (policies(device).items()
+                                 if "loops" in parts else ()):
         env, sim = sweep_env(device, mode, lanes)
         split, wall, dev, idle, launches = profile_loop(
             env, sim, policy, args.steps, args.warmup)
@@ -159,11 +249,21 @@ def main(argv=None):
               + f"; under the profiler {wall:.2f} ms per step, device "
               f"{dev:.3f} ms per step, idle share {idle:.3f}, "
               f"{launches:.0f} kernel launches per step", flush=True)
-    wall, dev, kernel = profile_family(device)
+    if "fit" not in parts:
+        return
+    wall, dev, kernel, family = profile_family(device)
     print(f"one lattice family under the profiler: wall {wall:.1f} ms, "
           f"device {dev:.1f} ms, admm_solve kernel {kernel:.1f} ms "
           f"({100 * kernel / dev:.1f}% of device time), idle share "
           f"{1 - dev / wall:.3f}", flush=True)
+    train, gram, visits = profile_fit_and_train(device, family, args.steps)
+    for name, (wall, dev, idle, launches, top) in (
+            ("train step (L1 loss, batch 8192, R=16, K=512, F=5)", train),
+            (f"fit of one region ({visits:,} rows: box test, gram pass, "
+             "solve), per chunk of 65,536", gram)):
+        print(f"{name} under the profiler: {wall:.3f} ms, device {dev:.3f} "
+              f"ms, idle share {idle:.3f}, {launches:.0f} kernel launches; "
+              f"device time by kernel: {top}", flush=True)
 
 
 if __name__ == "__main__":

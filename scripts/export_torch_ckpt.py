@@ -37,9 +37,22 @@ the npz layout). Writes to ``irbfn_tpu_torch/assets/``:
       action mode), run by the JAX package in f32: per-lane laps, done,
       final progress and mean |ey|.
 
+- with ``--train_golden`` (a Frenet net), ``<run>_train_golden.npz``: a
+  numerical fixture for the port's trainer, not data. A seeded batch of
+  1,024 rows (``x`` by ``draw_inputs``; targets ``y`` = the net's own f64
+  output plus seeded noise of scale 0.05), and in f64 from the JAX package:
+  ``loss``, ``pred_loss``, ``int_loss`` of ``frenet_fullint_loss``, its
+  gradient with respect to every parameter as ``grad_norm_<name>`` and a
+  strided sample ``grad_sample_<name>`` (every ``grad_stride_<name>``-th
+  element of the flattened gradient; names are the port's ``state_dict``
+  keys), and ``step_losses``: the losses of 5 Adam steps on that batch
+  (``lr``, ``max_grad_norm``; the loss of step i is taken before its
+  update).
+
 Usage (from the repo root):
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run frenet_wide_pr1 --golden
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run goal_mpc_pr --golden
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run frenet_wide_pr1 --train_golden
 """
 
 import argparse
@@ -63,8 +76,12 @@ from irbfn_tpu.parallel import GridSpec, build_lattice  # noqa: E402
 from irbfn_tpu.planning import GoalMPCPlanner, IRBFNFrenetPlanner  # noqa: E402
 from irbfn_tpu.solvers.goal_mpc import solve_goal_family  # noqa: E402
 from irbfn_tpu.sim import TrackEnv, deviation_metrics, oval_track  # noqa: E402
+from irbfn_tpu.train import create_train_state  # noqa: E402
+from irbfn_tpu.train import frenet_fullint_loss  # noqa: E402
 from irbfn_tpu.train import input_bounds_from_config, load_model  # noqa: E402
+from irbfn_tpu.train import make_train_step  # noqa: E402
 from irbfn_tpu_torch.train import flatten_tree  # noqa: E402  (the npz format)
+from irbfn_tpu_torch.train import params_from_jax  # noqa: E402
 
 ASSETS = os.path.join("irbfn_tpu_torch", "assets")
 N_GOLDEN = 1024
@@ -265,6 +282,60 @@ def goal_golden(model, variables, config):
     return out
 
 
+TRAIN = dict(rows=N_GOLDEN, noise=0.05, seed=1, lr=1e-4, max_grad_norm=1.0,
+             steps=5, max_sample=4096)
+
+
+def train_golden(model, variables, config):
+    """The f64 loss, gradient and Adam-step fixture of a Frenet net."""
+    rng = np.random.default_rng(TRAIN["seed"])
+    bounds = input_bounds_from_config(config)
+    x, _ = draw_inputs(bounds, 1.0, rng)
+    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                          {"params": variables["params"]})
+    x64 = jnp.asarray(x, jnp.float64)
+    y = np.asarray(model.apply(params, x64)) + TRAIN["noise"] * (
+        rng.standard_normal((x.shape[0], config["out_features"])))
+    dyn = f1tenth_params(mu=config.get("mu", 1.0), cs=config.get("cs", 5.0),
+                         dtype=jnp.float64).to_vector()
+
+    def apply_fn(p, xb):
+        return model.apply({"params": p["params"]}, xb)
+
+    def lf(p):
+        return frenet_fullint_loss(apply_fn, p, x64, jnp.asarray(y), dyn)
+
+    (loss, (pred_loss, int_loss)), grads = jax.value_and_grad(
+        lf, has_aux=True)(params)
+    out = dict(x=x, y=y, dyn=np.asarray(dyn), loss=np.asarray(loss),
+               pred_loss=np.asarray(pred_loss), int_loss=np.asarray(int_loss),
+               lr=TRAIN["lr"], max_grad_norm=TRAIN["max_grad_norm"])
+    for name, g in params_from_jax(jax.tree.map(np.asarray, grads),
+                                   config).items():
+        g = g.numpy().reshape(-1)
+        stride = max(1, -(-g.size // TRAIN["max_sample"]))
+        out[f"grad_norm_{name}"] = np.linalg.norm(g)
+        out[f"grad_stride_{name}"] = stride
+        out[f"grad_sample_{name}"] = g[::stride]
+    state = create_train_state(model, jax.random.PRNGKey(0), x64[:8],
+                               lr=TRAIN["lr"],
+                               max_grad_norm=TRAIN["max_grad_norm"])
+    state = state.replace(params=params)
+    state = state.replace(opt_state=state.tx.init(state.params))
+    step = make_train_step(frenet_fullint_loss, dyn, donate=False)
+    losses = []
+    for _ in range(TRAIN["steps"]):
+        state, m = step(state, x64, jnp.asarray(y))
+        losses.append(float(m.loss))
+    out["step_losses"] = np.asarray(losses)
+    print(f"train golden: loss {float(loss):.6f} (pred {float(pred_loss):.6f}"
+          f", int {float(int_loss):.6f}); grad norms "
+          + ", ".join(f"{k[10:]} {float(v):.4g}" for k, v in out.items()
+                      if k.startswith("grad_norm_"))
+          + f"; step losses {losses}", flush=True)
+    return out
+
+
 GOLDENS = {"goal_mpc_pr": (goal_golden, "goal_mpc_golden.npz")}
 
 
@@ -274,6 +345,9 @@ def main():
     ap.add_argument("--golden", action="store_true",
                     help="also write the run's goldens (runs the 1000-lane "
                          "closed loops on the CPU: minutes)")
+    ap.add_argument("--train_golden", action="store_true",
+                    help="also write <run>_train_golden.npz, the trainer's "
+                         "f64 loss, gradient and Adam-step fixture")
     ap.add_argument("--out_dir", default=ASSETS)
     args = ap.parse_args()
     model, variables, config = load_model(f"configs/{args.run}.yaml",
@@ -289,6 +363,11 @@ def main():
                                (frenet_golden, f"{args.run}_golden.npz"))
         np.savez_compressed(os.path.join(args.out_dir, name),
                             **fn(model, variables, config))
+        print(f"wrote {name}")
+    if args.train_golden:
+        name = f"{args.run}_train_golden.npz"
+        np.savez_compressed(os.path.join(args.out_dir, name),
+                            **train_golden(model, variables, config))
         print(f"wrote {name}")
 
 

@@ -122,6 +122,42 @@ def test_torch_params_from_jax_other_checkpoints(run):
     np.testing.assert_allclose(out, ref, rtol=0.0, atol=1e-8)
 
 
+@pytest.mark.parametrize("run", ["wide_mlp", "wide_deeper",
+                                 "frenet_wide_cluster"])
+def test_torch_params_from_jax_other_model_classes(run):
+    """The committed checkpoints of the other model classes (MLP,
+    DeeperWCRBFNet, ClusterWCRBFNet with R=500, K=10) load through
+    params_from_jax; f64 forwards (and the cluster net's logits) agree with
+    flax, and params_to_jax gives flax's tree back."""
+    from irbfn_tpu_torch.models import from_config
+    from irbfn_tpu_torch.train import params_to_jax
+
+    jmodel, variables, config = jload_model(f"configs/{run}.yaml",
+                                            f"ckpts/{run}")
+    variables = jax.tree.map(lambda a: np.asarray(a, np.float64),
+                             {"params": variables["params"]})
+    model = from_config(config, dtype=torch.float64, device="cpu")
+    assert type(model).__name__ == config["model_class"] != "WCRBFNet"
+    model.load_state_dict(params_from_jax(variables, config))
+    rng = np.random.default_rng(0)
+    lo = np.array([-0.4, -0.3, 1.0, -1.0, 3.0, -2.0, -0.5, -0.3])
+    hi = np.array([0.4, 0.3, 7.0, 1.0, 7.0, 2.0, 0.5, 0.3])
+    x = rng.uniform(lo, hi, size=(64, 8))
+    with torch.no_grad():
+        out = model(torch.from_numpy(x))
+    ref = jmodel.apply(variables, jnp.asarray(x))
+    if config["model_class"] == "ClusterWCRBFNet":
+        assert out[1].shape == (64, config["num_regions"])
+        np.testing.assert_allclose(out[1].numpy(), ref[1], rtol=0.0,
+                                   atol=1e-9)
+        out, ref = out[0], ref[0]
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0.0, atol=1e-8)
+    tree = params_to_jax(model.state_dict(), config)
+    assert jax.tree.structure(tree) == jax.tree.structure(variables)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(variables)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_torch_params_from_jax_checks_shapes(orbax_run):
     _, variables, config = orbax_run
     with pytest.raises(ValueError, match="head_kernel"):

@@ -14,9 +14,11 @@ import torch
 from irbfn_tpu.dynamics import frenet as jfr
 from irbfn_tpu.dynamics import params as jpar
 from irbfn_tpu.dynamics import single_track as jst
+from irbfn_tpu.dynamics import spiral as jsp
 from irbfn_tpu_torch.dynamics import frenet as tfr
 from irbfn_tpu_torch.dynamics import params as tpar
 from irbfn_tpu_torch.dynamics import single_track as tst
+from irbfn_tpu_torch.dynamics import spiral as tsp
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -139,3 +141,167 @@ def test_torch_frenet_rollout(integrator):
                            integrator=integrator)
     assert t.shape == (B, 5, 7)
     _close(t, j)
+
+
+# ------------------------------------- the rest of single_track and frenet
+
+def _cr_inputs(rng):
+    """States on both sides of the CommonRoad switches (v_low = 0.5, the
+    wheel-spin speed 7.319, the boxes' edges) and controls past the limits."""
+    x, u = _st_inputs(rng)
+    x[:8, 3] = [0.0, 0.3, -0.3, 0.5, 7.0, 7.4, 9.0, -7.0]
+    x[8:12, 2] = [0.4189, -0.4189, 0.5, -0.5]  # at and past the steer box
+    u[8:12, 1] = [1.0, -1.0, -1.0, 1.0]
+    return x, u
+
+
+@pytest.mark.parametrize("name", ["st_deriv_cr", "ks_deriv_cr",
+                                  "st_mixed_deriv"])
+def test_torch_single_track_cr_and_mixed_derivs(name):
+    rng = np.random.default_rng(5)
+    pj, pt = _params(rng)
+    x, u = _cr_inputs(rng)
+    j = getattr(jst, name)(jnp.asarray(x), jnp.asarray(u), pj)
+    t = getattr(tst, name)(torch.from_numpy(x), torch.from_numpy(u), pt)
+    _close(t, j)
+
+
+def test_torch_cr_constraints():
+    rng = np.random.default_rng(6)
+    pj, pt = _params(rng)
+    v = rng.uniform(-8.0, 9.0, B)
+    v[:4] = [7.0, -7.0, 7.319, 8.0]
+    a = rng.uniform(-12.0, 12.0, B)
+    d = rng.uniform(-0.5, 0.5, B)
+    d[:2] = [0.4189, -0.4189]
+    sv = rng.uniform(-4.0, 4.0, B)
+    _close(tst.accl_constraint(torch.from_numpy(v), torch.from_numpy(a), pt),
+           jst.accl_constraint(jnp.asarray(v), jnp.asarray(a), pj))
+    _close(tst.accl_constraint(torch.from_numpy(v), torch.from_numpy(a), pt,
+                               v_switch=5.0, v_min=-2.0),
+           jst.accl_constraint(jnp.asarray(v), jnp.asarray(a), pj,
+                               v_switch=5.0, v_min=-2.0))
+    _close(tst.steer_constraint(torch.from_numpy(d), torch.from_numpy(sv),
+                                pt),
+           jst.steer_constraint(jnp.asarray(d), jnp.asarray(sv), pj))
+    _close(tst.steer_constraint(torch.from_numpy(d), torch.from_numpy(sv),
+                                pt, s_min=-0.2, sv_min=-1.0),
+           jst.steer_constraint(jnp.asarray(d), jnp.asarray(sv), pj,
+                                s_min=-0.2, sv_min=-1.0))
+
+
+# the published CommonRoad unit-test vectors (the TUM vehicle-models
+# benchmark's full-size test vehicle), as tests/test_dynamics_oracle.py
+# holds the JAX package to them; control order here is [accl, sv]
+_FT = 0.3048
+_CR_VEC = [1.0489, 4.4482216152605 / _FT * 74.91452,
+           4.4482216152605 * _FT * 1321.416, _FT * 3.793293, _FT * 4.667707,
+           21.92 / 1.0489, 21.92 / 1.0489, _FT * 2.01355, 1e-2, 0.4, 11.5,
+           1.066, 50.8]
+
+
+@pytest.mark.parametrize("name,x,expected", [
+    ("st_deriv_cr",
+     [2.0233348142065677, 0.0041907137716636, 0.0197545248559617,
+      15.7216236334290116, 0.0025857914776859, 0.0529001056654038,
+      0.0033012170610298],
+     [15.7213512030862397, 0.0925527979719355, 0.1500000000000000,
+      5.3536773276413925, 0.0529001056654038, 0.6435589397748606,
+      0.0313297971641291]),
+    ("ks_deriv_cr",
+     [3.9579422297936526, 0.0391650102771405, 0.0378491427211811,
+      16.3546957860883566, 0.0294717351052816, 0.0, 0.0],
+     [16.3475935934250209, 0.4819314886013121, 0.1500000000000000,
+      5.1464424102339752, 0.2401426578627629, 0.0, 0.0]),
+])
+def test_torch_published_commonroad_vectors(name, x, expected):
+    p = tpar.VehicleParams.from_vector(torch.tensor(_CR_VEC,
+                                                    dtype=torch.float64))
+    u = torch.tensor([0.63 * 9.81, 0.15], dtype=torch.float64)
+    f = getattr(tst, name)(torch.tensor(x, dtype=torch.float64), u, p)
+    np.testing.assert_allclose(f.numpy(), expected, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("integrator", ["euler", "rk4"])
+def test_torch_single_track_rollout(integrator):
+    rng = np.random.default_rng(7)
+    pj, pt = _params(rng)
+    x, _ = _st_inputs(rng)
+    controls = np.stack([rng.uniform(-9, 9, (B, 5)),
+                         rng.uniform(-3, 3, (B, 5))], axis=-1)
+    j = jst.rollout(jnp.asarray(x), jnp.asarray(controls), pj,
+                    integrator=integrator)
+    t = tst.rollout(torch.from_numpy(x), torch.from_numpy(controls), pt,
+                    integrator=integrator)
+    assert t.shape == (B, 5, 7)
+    _close(t, j)
+
+
+def test_torch_reference_abi_rollouts():
+    """integrate_st, kinematic_onestep, integrate_frenet (with and without
+    the training floor on 1 - ey*curv, rows on both sides of it) and
+    frenet_onestep: the row layouts the training losses build."""
+    rng = np.random.default_rng(8)
+    vec = np.array(jpar.f1tenth_params(dtype=jnp.float64).to_vector())
+    x, u = _st_inputs(rng)
+    tail = np.concatenate([rng.uniform(-9, 9, (B, 5)),
+                           rng.uniform(-3, 3, (B, 5))], axis=1)
+    rows = np.concatenate([x, tail], axis=1)
+    _close(tst.integrate_st(torch.from_numpy(rows), torch.from_numpy(vec)),
+           jst.integrate_st(jnp.asarray(rows), jnp.asarray(vec)))
+    xu = np.concatenate([x, u], axis=1)
+    _close(tst.kinematic_onestep(torch.from_numpy(xu), torch.from_numpy(vec)),
+           jst.kinematic_onestep(jnp.asarray(xu), jnp.asarray(vec)))
+
+    xf, uf, curv = _fr_inputs(rng)
+    xf[:4, 1], curv[:4] = [2.2, -2.2, 2.3, 2.1], [0.45, -0.45, 0.45, 0.45]
+    frows = np.concatenate([xf, curv[:, None], tail], axis=1)
+    for eps in (None, 0.05):
+        t = tfr.integrate_frenet(torch.from_numpy(frows),
+                                 torch.from_numpy(vec), eps_denom=eps)
+        assert t.shape == (B, 5, 8)
+        _close(t, jfr.integrate_frenet(jnp.asarray(frows), jnp.asarray(vec),
+                                       eps_denom=eps))
+    one = np.concatenate([xf[:, 1:], curv[:, None], np.zeros((B, 1)), uf],
+                         axis=1)
+    _close(tfr.frenet_onestep(torch.from_numpy(one), torch.from_numpy(vec)),
+           jfr.frenet_onestep(jnp.asarray(one), jnp.asarray(vec)))
+
+
+# ------------------------------------------------------------------ spirals
+
+def _spiral_params(rng):
+    return np.concatenate([rng.uniform(-0.2, 0.2, (B, 4)),
+                           rng.uniform(3.0, 30.0, (B, 1))], axis=1)
+
+
+@pytest.mark.parametrize("name", ["params_to_coefs", "integrate_path",
+                                  "integrate_endpoint_gl", "sample_path"])
+def test_torch_spiral(name):
+    p = _spiral_params(np.random.default_rng(9))
+    _close(getattr(tsp, name)(torch.from_numpy(p)),
+           getattr(jsp, name)(jnp.asarray(p)))
+
+
+def test_torch_spiral_pieces():
+    rng = np.random.default_rng(10)
+    p = _spiral_params(rng)
+    coefs = np.asarray(jsp.params_to_coefs(jnp.asarray(p)))
+    s = rng.uniform(0.0, 30.0, B)
+    for t, j in zip(tsp.curvature_theta(torch.from_numpy(coefs),
+                                        torch.from_numpy(s)),
+                    jsp.curvature_theta(jnp.asarray(coefs), jnp.asarray(s))):
+        _close(t, j)
+    k0, dk, sf = p[:, 0], p[:, 1] * 0.1, p[:, 4]
+    _close(tsp.clothoid_to_params(*map(torch.from_numpy, (k0, dk, sf))),
+           jsp.clothoid_to_params(*map(jnp.asarray, (k0, dk, sf))))
+    # other quadrature sizes, and the node cache returns the same tensors
+    _close(tsp.integrate_endpoint_gl(torch.from_numpy(p), order=8,
+                                     segments=2),
+           jsp.integrate_endpoint_gl(jnp.asarray(p), order=8, segments=2))
+    assert (tsp._gl_nodes(8, 2, torch.float64, torch.device("cpu"))[0]
+            is tsp._gl_nodes(8, 2, torch.float64, torch.device("cpu"))[0])
+    # the endpoint is differentiable (the clothoid loss goes through it)
+    q = torch.from_numpy(p).requires_grad_(True)
+    tsp.integrate_endpoint_gl(q).sum().backward()
+    assert torch.isfinite(q.grad).all() and q.grad.abs().sum() > 0

@@ -385,5 +385,11 @@ def test_torch_rbf_reference_ignores_the_packed_layout(per_region):
 
 
 def test_torch_rbf_not_ported_models_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_config({"model_class": "DeeperWCRBFNet"})
+    """Every model class of the JAX package is ported: only a class that
+    neither package has raises, and by its name."""
+    from irbfn_tpu.models import _MODEL_CLASSES
+    from irbfn_tpu_torch.models import MODEL_CLASSES
+
+    assert sorted(MODEL_CLASSES) == sorted(_MODEL_CLASSES)
+    with pytest.raises(KeyError, match="GatedWCRBFNet"):
+        from_config({"model_class": "GatedWCRBFNet"})
