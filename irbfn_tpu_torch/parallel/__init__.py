@@ -1,12 +1,19 @@
-"""Lattice data generation on one device, and the goal-MPC table generator
-(``python -m irbfn_tpu_torch.parallel.gen_goal_mpc_table``)."""
+"""Lattice data generation on one device, and the table generators
+(``python -m irbfn_tpu_torch.parallel.gen_goal_mpc_table``,
+``python -m irbfn_tpu_torch.parallel.gen_nmpc_table_frenet``)."""
 
 from irbfn_tpu_torch.parallel.datagen import (
+    CLOTHOID_GRID,
+    FRENET_GRID,
     GridSpec,
+    TableSolution,
     build_lattice,
     controls_block,
+    frenet_table,
+    save_table,
     solve_lattice,
 )
 
-__all__ = ["GridSpec", "build_lattice", "controls_block",
+__all__ = ["CLOTHOID_GRID", "FRENET_GRID", "GridSpec", "TableSolution",
+           "build_lattice", "controls_block", "frenet_table", "save_table",
            "solve_lattice"]

@@ -6,14 +6,15 @@ reference's), and ``solve_lattice`` runs a batched solver over them in
 chunks. On the card, chunk i's results are copied back into pinned host
 buffers while chunk i+1 is already queued, so the device does not wait for
 those copies. ``controls_block`` flattens a table's control sequences into
-the layout the nets are trained on. Sharding across cards, ``TableSolution``
-and ``frenet_table`` are still to be ported.
+the layout the nets are trained on. ``TableSolution`` is what a table keeps
+of an NMPC solution, and ``frenet_table`` assembles the on-disk table with
+its -999 sentinel rows. Sharding across cards is still to be ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Sequence
+from typing import Callable, Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -36,6 +37,26 @@ class GridSpec:
 
     def values(self) -> np.ndarray:
         return np.linspace(self.lo, self.hi, self.num, endpoint=True)
+
+
+# the reference's default frenet lattice
+FRENET_GRID = (
+    GridSpec("ey", -0.2, 2.0, 12),
+    GridSpec("delta", -0.3, 0.3, 7),
+    GridSpec("vx_car", 1.0, 7.0, 11),
+    GridSpec("vy_car", -1.0, 1.0, 11),
+    GridSpec("vx_goal", 3.0, 7.0, 5),
+    GridSpec("wz", -2.6, 2.6, 11),
+    GridSpec("epsi", -1.0, 1.0, 11),
+    GridSpec("curv", -0.1, 0.1, 3),
+)
+
+# the reference's clothoid LUT lattice
+CLOTHOID_GRID = (
+    GridSpec("x", 5.0, 30.0, 251),
+    GridSpec("y", -8.0, 8.0, 161),
+    GridSpec("theta", -1.57, 1.57, 158),
+)
 
 
 def build_lattice(grid: Sequence[GridSpec], dtype=np.float32) -> np.ndarray:
@@ -100,6 +121,56 @@ def solve_lattice(solve_fn: Callable, rows: np.ndarray,
     if not outs:
         raise ValueError("solve_lattice needs at least one row")
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+class TableSolution(NamedTuple):
+    """The table-relevant slice of an NMPCSolution: what datagen persists
+    (``frenet_table`` below). Copying only this back to the host, with the
+    activation one-hot as bool, cuts the per-row payload 4x against the
+    full solution (the table format discards states and kkt anyway)."""
+
+    accel: torch.Tensor  # (..., T)
+    steer_vel: torch.Tensor  # (..., T)
+    active_onehot: torch.Tensor  # (..., 86) bool
+    feasible: torch.Tensor  # (...,) bool
+
+    @classmethod
+    def from_solution(cls, sol, include_onehot: bool = True) -> "TableSolution":
+        """``include_onehot=False`` drops the 86-wide activation pattern
+        (the dominant per-row payload) for tables that only feed lookup
+        planners, e.g. multi-mu bandit banks, where constraint clustering
+        is never run; ``frenet_table`` then omits ``constraints``."""
+        onehot = (sol.active_onehot.to(torch.bool) if include_onehot
+                  else sol.active_onehot[..., :0].to(torch.bool))
+        return cls(sol.accel, sol.steer_vel, onehot, sol.feasible)
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def frenet_table(rows, solution, n_constraints: int = 86) -> Dict[str, np.ndarray]:
+    """Assemble the reference's on-disk table dict from an NMPCSolution or
+    a TableSolution (tensors or numpy arrays): ``inputs`` (N, 8),
+    ``outputs`` (N, T, 2) [accel, steer-vel columns], and ``constraints``
+    (N, 86), with infeasible rows encoded as -999 sentinels, plus ``valid``.
+    ``constraints`` is left out when the one-hot is empty."""
+    accel = _host(solution.accel)
+    sv = _host(solution.steer_vel)
+    feas = _host(solution.feasible)
+    onehot = _host(solution.active_onehot)
+    outputs = np.stack([accel, sv], axis=-1)
+    outputs[~feas] = -999.0
+    table = {"inputs": _host(rows), "outputs": outputs, "valid": feas}
+    if onehot.shape[-1]:
+        constraints = onehot.astype(np.float64)
+        constraints[~feas] = -999.0
+        table["constraints"] = constraints
+    return table
+
+
+def save_table(path: str, table: Dict[str, np.ndarray]):
+    np.savez(path, **table)
 
 
 def controls_block(outputs: np.ndarray) -> np.ndarray:

@@ -6,9 +6,12 @@ exact-reflection mirror, the clamp into the trained grid, the WCRBF net
 (whose forward is the fused CUDA kernel on the card), the un-mirror, and a
 Frenet rollout of the planned controls.
 
+``NMPCPlanner`` puts the batched AL/Newton solver in the loop, warm-started
+by a net, by its own previous solution, or from zeros.
+
 ``_lookahead_goal`` is the goal-MPC planner's waypoint lookup
-(``planning/goal_planner.py``). The cartesian, NMPC, adaptive and
-grip-adaptive planners are still to be ported.
+(``planning/goal_planner.py``). The cartesian, adaptive and grip-adaptive
+planners are still to be ported.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 from irbfn_tpu_torch.dynamics.frenet import frenet_rollout
 from irbfn_tpu_torch.dynamics.params import VehicleParams, f1tenth_params
 from irbfn_tpu_torch.sim.track import Track, horizon_goal_speed, interp_wrapped
+from irbfn_tpu_torch.solvers.nmpc import (NMPCConfig, NMPCSolution,
+                                          solve_nmpc_batch)
 
 
 def _lookahead_goal(rl_points, rl_vxs, rl_yaws, x, y, v, horizon_time=0.5,
@@ -125,3 +130,67 @@ class IRBFNFrenetPlanner:
                               obs["linear_vel_x"], obs["linear_vel_y"],
                               obs["ang_vel_z"])
         return float(res.accel), float(res.steer_vel)
+
+
+class NMPCPlanner:
+    """Solver-in-the-loop planner: the batched AL/Newton solver solves one
+    NMPC problem per pose and control step.
+
+    Warm starts, in priority order:
+      1. an attached IRBFN net's predicted control sequence (amortized
+         optimization: the net proposes, the solver polishes),
+      2. the previous solution shifted one step,
+      3. zeros.
+    """
+
+    def __init__(self, track: Track, params: VehicleParams,
+                 cfg: NMPCConfig = NMPCConfig(),
+                 warm_start_planner: "IRBFNFrenetPlanner | None" = None):
+        """``params``: the solver's internal vehicle model, on the track's
+        device; its dtype is the solve's."""
+        self.track = track
+        self.params = params
+        self.cfg = cfg
+        self.warm_start_planner = warm_start_planner
+        self.device = track.raceline.ss.device
+        self.dtype = params.dtype
+        self._u_prev = None
+
+    @torch.no_grad()
+    def plan_batch(self, s, ey, epsi, delta, vx, vy, wz) -> NMPCSolution:
+        s, ey, epsi, delta, vx, vy, wz = (
+            torch.as_tensor(a, dtype=self.dtype, device=self.device)
+            for a in (s, ey, epsi, delta, vx, vy, wz))
+        rl = self.track.raceline
+        curv = interp_wrapped(rl.ss, rl.ks, s, rl.length).to(self.dtype)
+        vx_goal = horizon_goal_speed(
+            rl, s, vx, float(self.cfg.horizon * self.cfg.dt)).to(self.dtype)
+        zeros = torch.zeros_like(ey)
+        x0 = torch.stack([zeros, ey, delta, vx, vy, wz, epsi], dim=-1)
+        goal = torch.stack([zeros] * 3 + [vx_goal] + [zeros] * 3, dim=-1)
+        if self.warm_start_planner is not None:
+            net_plan = self.warm_start_planner.plan_batch(
+                s, ey, epsi, delta, vx, vy, wz)
+            u_init = net_plan.pred_controls.to(x0.dtype)
+        else:
+            u_init = self._u_prev
+            if u_init is not None and u_init.shape[:-2] != x0.shape[:-1]:
+                u_init = None
+        sol = solve_nmpc_batch(x0, goal, curv, self.params, self.cfg,
+                               u_init=u_init)
+        u = torch.stack([sol.accel, sol.steer_vel], dim=-1)
+        # shift the warm start one step forward
+        self._u_prev = torch.cat([u[..., 1:, :], u[..., -1:, :]], dim=-2)
+        return sol
+
+    def plan(self, obs) -> tuple:
+        def t(v):
+            return torch.atleast_1d(torch.as_tensor(
+                v, dtype=self.dtype, device=self.device))
+
+        s, ey, epsi = self.track.cartesian_to_frenet(
+            t(obs["pose_x"]), t(obs["pose_y"]), t(obs["pose_theta"]))
+        sol = self.plan_batch(s, ey, epsi, t(obs["delta"]),
+                              t(obs["linear_vel_x"]), t(obs["linear_vel_y"]),
+                              t(obs["ang_vel_z"]))
+        return float(sol.accel[0, 0]), float(sol.steer_vel[0, 0])

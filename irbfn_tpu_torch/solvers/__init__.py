@@ -1,4 +1,5 @@
-"""Solvers: the goal-MPC condensed box QP (family, row and lattice solves)."""
+"""Solvers: the goal-MPC condensed box QP (family, row and lattice solves),
+the batched AL/Newton NMPC solver and its host-side SLSQP oracle."""
 
 from irbfn_tpu_torch.solvers.goal_mpc import (
     GoalMPCConfig,
@@ -9,7 +10,20 @@ from irbfn_tpu_torch.solvers.goal_mpc import (
     solve_goal_lattice,
     solve_goal_mpc,
 )
+from irbfn_tpu_torch.solvers.nmpc import (
+    NMPCConfig,
+    NMPCSolution,
+    cartesian_config,
+    kinematic_config,
+    solve_cartesian_point,
+    solve_lattice_multi_params,
+    solve_lattice_point,
+    solve_nmpc_batch,
+)
 
 __all__ = ["GoalMPCConfig", "GoalMPCSolution", "GoalQPFamily",
            "condensed_family", "solve_goal_family", "solve_goal_lattice",
-           "solve_goal_mpc"]
+           "solve_goal_mpc", "NMPCConfig", "NMPCSolution",
+           "cartesian_config", "kinematic_config", "solve_cartesian_point",
+           "solve_lattice_multi_params", "solve_lattice_point",
+           "solve_nmpc_batch"]

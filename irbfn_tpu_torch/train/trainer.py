@@ -25,7 +25,7 @@ schedule is read at the count of steps already taken (0 for the first),
 and the clip comes before the step. The clip is optax's rule
 (``clip_by_global_norm_`` below) and not ``clip_grad_norm_``, which divides
 by ``norm + 1e-6``: with it, five clipped f64 steps at lr 1e-2 ended 7e-8
-from optax's weights.
+away from optax's weights.
 """
 
 from __future__ import annotations

@@ -1,12 +1,27 @@
 """Centralized CLI flag groups for the port's entry points: vehicle,
 training, eval and io flags. Port of ``irbfn_tpu/utils/args.py``, with the
-same flags and defaults (its lattice-grid groups come with the table
-generators that use them), plus ``add_device_args`` (where an entry point
+same flags and defaults (the clothoid grid group comes with the table
+generator that uses it), plus ``add_device_args`` (where an entry point
 runs and where it writes)."""
 
 from __future__ import annotations
 
 import argparse
+
+
+def add_frenet_grid_args(p: argparse.ArgumentParser):
+    """8-D Frenet lattice flags, the reference defaults."""
+    g = p.add_argument_group("frenet grid")
+    for name, lo, hi, num in [
+        ("ey", -0.2, 2.0, 12), ("delta", -0.3, 0.3, 7),
+        ("vx_car", 1.0, 7.0, 11), ("vy_car", -1.0, 1.0, 11),
+        ("vx_goal", 3.0, 7.0, 5), ("wz", -2.6, 2.6, 11),
+        ("epsi", -1.0, 1.0, 11), ("curv", -0.1, 0.1, 3),
+    ]:
+        g.add_argument(f"--{name}_min", type=float, default=lo)
+        g.add_argument(f"--{name}_max", type=float, default=hi)
+        g.add_argument(f"--num_{name}", type=int, default=num)
+    return p
 
 
 def add_vehicle_args(p: argparse.ArgumentParser):

@@ -19,6 +19,14 @@ share of it; and for the fit-and-train path on that family's table
   per step, device ms per step, idle share, launches per step, and the
   device time by kernel;
 - one region's gram pass of ``fit_per_region``: the same, per chunk.
+
+``--parts nmpc`` profiles the batched NMPC solver instead (f32, rows drawn
+by seed from the flagship table's ranges), at ``--nmpc_batches`` rows (1,000
+and the table generator's chunk by default): one default solve's seconds,
+Newton iterations and seconds per iteration; under ``torch.profiler`` a
+short solve's kernel launches per iteration, device time, idle share and top
+device operations; and the synchronised split of one iteration into the
+fused derivative pass, the SPD solve and the line search.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from irbfn_tpu_torch.dynamics import VehicleParams, f1tenth_params
 from irbfn_tpu_torch.parallel import gen_goal_mpc_table as gen
+from irbfn_tpu_torch.parallel.gen_nmpc_table_frenet import wide_rows
 from irbfn_tpu_torch.planning import GoalMPCPlanner, IRBFNFrenetPlanner
 from irbfn_tpu_torch.sim import TrackEnv, oval_track
 from irbfn_tpu_torch.models import build_region_bounds
@@ -221,6 +230,86 @@ def profile_fit_and_train(device, family, steps, batch=8192):
     return train, _profiled(one_region, chunks), timings["row_visits"]
 
 
+def profile_nmpc(device, batch: int, seed: int = 0):
+    """One default f32 solve of ``batch`` wide-range rows, a short solve
+    under the profiler, and one Newton iteration's parts."""
+    import dataclasses
+
+    from irbfn_tpu_torch.dynamics import fullscale_params
+    from irbfn_tpu_torch.solvers import nmpc
+
+    rows = torch.as_tensor(wide_rows(batch, seed), device=device)
+    params = fullscale_params(device=device)
+    cfg = nmpc.NMPCConfig()
+    short = dataclasses.replace(cfg, gn_iters=3, al_outer=1)
+    nmpc.solve_lattice_point(rows, params, short)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sol = nmpc.solve_lattice_point(rows, params, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = nmpc.LAST_SOLVE_STATS["newton_iterations"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    feasible = float(sol.feasible.float().mean())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nmpc.solve_lattice_point(rows, params, short)
+        torch.cuda.synchronize()
+        p_wall = 1e3 * (time.perf_counter() - t0)
+    p_iters = nmpc.LAST_SOLVE_STATS["newton_iterations"]
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
+    dev = _device_ms(prof)
+
+    # one iteration's parts, synchronised, at the cold start u = 0
+    T = cfg.horizon
+    zeros = torch.zeros_like(rows[:, 0])
+    x0 = torch.stack([zeros, rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3],
+                      rows[:, 5], rows[:, 6]], dim=-1)
+    goal = torch.zeros_like(x0)
+    goal[:, 3] = rows[:, 4]
+    curv = rows[:, 7].contiguous()
+    u = torch.zeros((batch, 2 * T), device=device)
+    lam = torch.zeros((batch, 4 * (T + 1)), device=device)
+    rho = torch.tensor(cfg.penalty0, device=device)
+    lo, hi = nmpc._control_bounds(cfg, torch.float32, device)
+    lo_flat, hi_flat = lo.repeat(T), hi.repeat(T)
+    p_c = nmpc._lift_params(params, 1)
+
+    def obj_cands(c):
+        lead = c.shape[:2]
+        return nmpc._objective_and_states(
+            c, x0[:, None].expand(lead + (7,)),
+            goal[:, None].expand(lead + (7,)), curv[:, None].expand(lead),
+            lam[:, None], rho, p_c, cfg)
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps, out
+
+    with torch.no_grad():
+        t_deriv, (H_s, Jw, v, gs, w) = timed(lambda: nmpc._fused_derivatives(
+            u, x0, goal, curv, lam, rho, params, cfg))
+        JwT = Jw.transpose(-1, -2)
+        g = gs + 2.0 * (JwT @ w[..., None])[..., 0]
+        A = (H_s + 2.0 * (JwT @ Jw)
+             + 1e-4 * torch.eye(2 * T, device=device))
+        t_spd, step = timed(lambda: nmpc._solve_spd(A, g))
+        t_ls, _ = timed(lambda: nmpc._line_search(
+            u, step, obj_cands, lo_flat, hi_flat, cfg))
+    return dict(batch=batch, wall=wall, iters=iters, feasible=feasible,
+                peak_gib=peak, p_wall_ms=p_wall, p_iters=p_iters,
+                launches=launches, device_ms=dev, top=_top_device(prof, 6),
+                t_deriv=t_deriv, t_spd=t_spd, t_ls=t_ls)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--steps", type=int, default=30)
@@ -228,16 +317,36 @@ def main(argv=None):
     p.add_argument("--parts", type=str, default="loops,fit",
                    help="what to profile: the closed loops, the lattice "
                         "family with the fit and train step on its table")
+    p.add_argument("--nmpc_batches", type=str, default="1000,65536",
+                   help="rows per solve for --parts nmpc")
     args = p.parse_args(argv)
     parts = set(args.parts.split(","))
-    if not parts <= {"loops", "fit"}:
-        p.error(f"--parts takes loops and fit, not {args.parts!r}")
+    if not parts <= {"loops", "fit", "nmpc"}:
+        p.error(f"--parts takes loops, fit and nmpc, not {args.parts!r}")
     device = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip() or torch.cuda.get_device_name(0), flush=True)
+    for batch in ([int(b) for b in args.nmpc_batches.split(",")]
+                  if "nmpc" in parts else ()):
+        r = profile_nmpc(device, batch)
+        per_it = r["wall"] / max(r["iters"], 1)
+        print(f"NMPC solve, f32, B={batch:,} wide-range rows, default "
+              f"budgets: {r['wall']:.2f} s, {r['iters']} Newton iterations, "
+              f"{1e3 * per_it:.1f} ms per iteration, "
+              f"{batch / r['wall']:,.0f} solves/s, feasible "
+              f"{100 * r['feasible']:.1f}%, peak memory {r['peak_gib']:.2f} "
+              f"GiB; a {r['p_iters']}-iteration solve under the profiler: "
+              f"{r['p_wall_ms']:.1f} ms, device {r['device_ms']:.1f} ms, idle "
+              f"share {1 - r['device_ms'] / r['p_wall_ms']:.3f}, "
+              f"{r['launches'] / r['p_iters']:.0f} kernel launches per "
+              f"iteration (the solve's set-up and diagnostics included); one "
+              f"iteration's parts, synchronised: fused derivative pass "
+              f"{r['t_deriv']:.1f} ms, SPD solve {r['t_spd']:.2f} ms, line "
+              f"search {r['t_ls']:.1f} ms; device time by kernel: {r['top']}",
+              flush=True)
     lanes = load_lanes()
     for name, (mode, policy) in (policies(device).items()
                                  if "loops" in parts else ()):

@@ -49,7 +49,24 @@ the npz layout). Writes to ``irbfn_tpu_torch/assets/``:
   (``lr``, ``max_grad_norm``; the loss of step i is taken before its
   update).
 
+- with ``--nmpc_golden`` (no checkpoint is read), ``nmpc_golden.npz``, what
+  ``chip_smoke.py`` holds the port's NMPC solver against:
+    * ``rows``: 234 rows drawn by seed from the flagship "wide" table's
+      ranges, and ``sol_*``: the JAX ``solve_lattice_point`` solutions of
+      them in f64 at the default budgets, solved in chunks of 39 rows (one
+      compiled program);
+    * ``oracle_*``: the 100 stored SLSQP rows and solutions of
+      ``tests/oracles/nmpc_frenet_slsqp.npz``, copied;
+    * ``loop_*``: a short NMPC-in-the-loop run of the JAX ``NMPCPlanner``
+      (f64 solves at ``loop_gn_iters`` x ``loop_al_outer``, its own shifted
+      warm start) on 39 lanes of the eval sweep for ``loop_steps`` control
+      steps on the oval: per step the observation the planner saw
+      (``loop_obs``: s, ey, epsi, delta, vx, vy, wz), its first action
+      (``loop_action``) and its feasibility flags;
+    * ``meta_*``: the seeds and the versions of jax, jaxlib and numpy.
+
 Usage (from the repo root):
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --nmpc_golden   # ~6 min
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run frenet_wide_pr1 --golden
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run goal_mpc_pr --golden
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run frenet_wide_pr1 --train_golden
@@ -336,6 +353,92 @@ def train_golden(model, variables, config):
     return out
 
 
+NMPC_SEED = 0
+NMPC_CHUNK = 39  # rows per JAX solve: one program shape
+NMPC_CHUNKS = 6
+NMPC_LOOP = dict(gn_iters=10, al_outer=2, steps=4)
+
+
+def nmpc_golden() -> dict:
+    """JAX f64 NMPC solutions of seeded wide-range rows, the stored SLSQP
+    oracle, and a short NMPC-in-the-loop run."""
+    import jaxlib
+
+    from irbfn_tpu.dynamics.params import fullscale_params
+    from irbfn_tpu.planning import NMPCPlanner
+    from irbfn_tpu.solvers.nmpc import NMPCConfig, solve_lattice_point
+    from irbfn_tpu_torch.parallel.gen_nmpc_table_frenet import wide_rows
+
+    params = fullscale_params(dtype=jnp.float64)
+    rows = wide_rows(NMPC_CHUNK * NMPC_CHUNKS, NMPC_SEED, np.float64)
+    t0 = time.perf_counter()
+    sols = [solve_lattice_point(jnp.asarray(rows[i:i + NMPC_CHUNK]), params,
+                                NMPCConfig())
+            for i in range(0, len(rows), NMPC_CHUNK)]
+    out = {f"sol_{k}": np.concatenate([np.asarray(getattr(s, k))
+                                       for s in sols])
+           for k in sols[0]._fields}
+    out["rows"] = rows
+    print(f"{len(rows)} wide-range rows in f64: "
+          f"{100 * out['sol_feasible'].mean():.1f}% feasible, "
+          f"{time.perf_counter() - t0:.0f} s (JAX, CPU)", flush=True)
+    with np.load("tests/oracles/nmpc_frenet_slsqp.npz") as z:
+        out.update({f"oracle_{k}": z[k] for k in
+                    ("rows", "u", "objective", "max_violation", "feasible")})
+
+    # NMPC in the loop: 39 lanes spread over the eval sweep, env in f32,
+    # the planner's solves in f64
+    jax.config.update("jax_enable_x64", False)
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
+    mu, cs = sweep_lanes()
+    lanes = np.linspace(0, mu.size - 1, NMPC_CHUNK).round().astype(int)
+    base = f1tenth_params()
+    B = lanes.size
+    full = lambda v: jnp.full((B,), v, jnp.float32)  # noqa: E731
+    params_b = VehicleParams(
+        mu=jnp.asarray(mu[lanes], jnp.float32), m=full(base.m),
+        I=full(base.I), lf=full(base.lf), lr=full(base.lr),
+        C_Sf=jnp.asarray(cs[lanes], jnp.float32),
+        C_Sr=jnp.asarray(cs[lanes], jnp.float32), h=full(base.h),
+        dt=full(0.01), sv_max=full(base.sv_max), a_max=full(base.a_max),
+        s_max=full(base.s_max), v_max=full(base.v_max))
+    env = TrackEnv(track, params_b, half_width=LOOP["half_width"])
+    noise = np.random.default_rng(LOOP["seed"]).standard_normal(
+        (mu.size, 3)).astype(np.float32)[lanes]
+    sim = env.reset(s0=jnp.zeros(B), speed0=1.0, batch_shape=(B,))
+    dn = LOOP["noise_scale"] * jnp.asarray(noise)
+    xs = sim.x.at[:, 0].add(dn[:, 0]).at[:, 1].add(dn[:, 1])
+    sim = sim._replace(x=xs.at[:, 4].add(dn[:, 2]))
+    jax.config.update("jax_enable_x64", True)
+    cfg = NMPCConfig(gn_iters=NMPC_LOOP["gn_iters"],
+                     al_outer=NMPC_LOOP["al_outer"])
+    planner = NMPCPlanner(track, params, cfg)
+    obs_log, act_log, feas_log = [], [], []
+    for _ in range(NMPC_LOOP["steps"]):
+        o = env.observe(sim)
+        obs7 = [o.s, o.ey, o.epsi, o.delta, o.linear_vel_x, o.linear_vel_y,
+                o.ang_vel_z]
+        sol = planner.plan_batch(*(jnp.asarray(a, jnp.float64)
+                                   for a in obs7))
+        action = jnp.stack([sol.accel[:, 0], sol.steer_vel[:, 0]], axis=-1)
+        obs_log.append(np.stack([np.asarray(a) for a in obs7], -1))
+        act_log.append(np.asarray(action))
+        feas_log.append(np.asarray(sol.feasible))
+        sim = env.step(sim, action.astype(jnp.float32))
+    out.update(loop_obs=np.stack(obs_log), loop_action=np.stack(act_log),
+               loop_feasible=np.stack(feas_log), loop_lanes=lanes,
+               loop_mu=mu[lanes].astype(np.float32),
+               loop_cs=cs[lanes].astype(np.float32), loop_noise=noise,
+               loop_gn_iters=NMPC_LOOP["gn_iters"],
+               loop_al_outer=NMPC_LOOP["al_outer"],
+               loop_steps=NMPC_LOOP["steps"], meta_seed=NMPC_SEED,
+               meta_loop_seed=LOOP["seed"], meta_jax=jax.__version__,
+               meta_jaxlib=jaxlib.__version__, meta_numpy=np.__version__)
+    print(f"NMPC in the loop: {B} lanes x {NMPC_LOOP['steps']} steps, "
+          f"feasible {100 * np.mean(feas_log):.1f}%", flush=True)
+    return out
+
+
 GOLDENS = {"goal_mpc_pr": (goal_golden, "goal_mpc_golden.npz")}
 
 
@@ -348,8 +451,17 @@ def main():
     ap.add_argument("--train_golden", action="store_true",
                     help="also write <run>_train_golden.npz, the trainer's "
                          "f64 loss, gradient and Adam-step fixture")
+    ap.add_argument("--nmpc_golden", action="store_true",
+                    help="write nmpc_golden.npz (the NMPC solver's f64 "
+                         "solutions; reads no checkpoint) and stop")
     ap.add_argument("--out_dir", default=ASSETS)
     args = ap.parse_args()
+    if args.nmpc_golden:
+        os.makedirs(args.out_dir, exist_ok=True)
+        np.savez_compressed(os.path.join(args.out_dir, "nmpc_golden.npz"),
+                            **nmpc_golden())
+        print("wrote nmpc_golden.npz")
+        return
     model, variables, config = load_model(f"configs/{args.run}.yaml",
                                           f"ckpts/{args.run}")
     os.makedirs(args.out_dir, exist_ok=True)

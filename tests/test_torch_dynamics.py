@@ -305,3 +305,73 @@ def test_torch_spiral_pieces():
     q = torch.from_numpy(p).requires_grad_(True)
     tsp.integrate_endpoint_gl(q).sum().backward()
     assert torch.isfinite(q.grad).all() and q.grad.abs().sum() > 0
+
+
+# ------------------- the solve_ivp trajectory oracles, on the port's rk4_step
+
+_SCENARIOS = {
+    # name: (initial [x, y, delta, v, psi, psidot, beta], control [accl, sv])
+    "braking": ([0.0, 0.0, 0.0, 20.0, 0.0, 0.0, 0.0], [-0.7 * 9.81, 0.0]),
+    "acceleration": ([0.0, 0.0, 0.05, 0.0, 0.0, 0.0, 0.0],
+                     [0.63 * 9.81, 0.0]),
+    "cornering": ([0.0, 0.0, 0.05, 15.0, 0.0, 0.0, 0.0], [0.0, 0.05]),
+}
+
+
+def _cr_params(dt):
+    vec = list(_CR_VEC)
+    vec[8] = dt
+    return tpar.VehicleParams.from_vector(torch.tensor(vec,
+                                                       dtype=torch.float64))
+
+
+def _torch_rollout_rk4(x0, u, n_steps, dt):
+    p = _cr_params(dt)
+    x = torch.tensor(x0, dtype=torch.float64)
+    u = torch.tensor(u, dtype=torch.float64)
+    xs = [x]
+    for _ in range(n_steps):
+        x = tst.rk4_step(tst.st_deriv_cr, x, u, p)
+        xs.append(x)
+    return torch.stack(xs).numpy()
+
+
+@pytest.mark.parametrize("name", list(_SCENARIOS))
+def test_torch_trajectory_matches_ivp_oracle(name):
+    """The port's fixed-step RK4 over ``st_deriv_cr`` tracks scipy's
+    adaptive solve_ivp of the same derivative over a 1 s scenario, at the
+    tolerances tests/test_dynamics_oracle.py holds the JAX package to."""
+    from scipy.integrate import solve_ivp
+
+    x0, u = _SCENARIOS[name]
+    dt, t_final = 1e-3, 1.0
+    traj = _torch_rollout_rk4(x0, u, int(t_final / dt), dt)
+    p = _cr_params(dt)
+    ut = torch.tensor(u, dtype=torch.float64)
+    sol = solve_ivp(
+        lambda t, x: tst.st_deriv_cr(torch.as_tensor(x), ut, p).numpy(),
+        (0.0, t_final), np.asarray(x0, np.float64), rtol=1e-9, atol=1e-11,
+        dense_output=True)
+    assert sol.success
+    ref = sol.sol(np.arange(len(traj)) * dt).T
+    err = np.abs(traj - ref).max(axis=0)
+    # pose and speed track the oracle tightly; psi_dot and beta tolerate
+    # the right-hand side's jump at the |v| = 0.5 model switch
+    assert err[[0, 1, 2, 3, 4]].max() < 1e-5, f"{name}: pose err {err}"
+    assert err[[5, 6]].max() < 2e-3, f"{name}: psidot/beta err {err}"
+
+
+def test_torch_braking_acceleration_and_stationary_invariants():
+    x0, u = _SCENARIOS["braking"]
+    traj = _torch_rollout_rk4(x0, u, 1000, 1e-3)
+    v = traj[:, 3]
+    assert (np.diff(v) <= 1e-12).all()
+    np.testing.assert_allclose(traj[:, 1], 0.0, atol=1e-9)
+    np.testing.assert_allclose(v[-1], 20.0 - 0.7 * 9.81, rtol=1e-6)
+    x0, u = _SCENARIOS["acceleration"]
+    traj = _torch_rollout_rk4(x0, u, 2000, 1e-3)
+    assert np.isfinite(traj).all()
+    assert (np.diff(traj[:, 3]) > 0).all() and traj[-1, 1] > 0.01
+    f = tst.st_deriv_cr(torch.zeros(7, dtype=torch.float64),
+                        torch.zeros(2, dtype=torch.float64), _cr_params(1e-2))
+    np.testing.assert_array_equal(f.numpy(), 0.0)

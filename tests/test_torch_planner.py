@@ -289,3 +289,183 @@ def test_torch_goal_planner_closed_loop_matches_jax():
     np.testing.assert_allclose(ey_t, np.abs(np.asarray(trj.obs.ey)).mean(0),
                                atol=1e-7)
     assert ey_t.mean() < 0.15
+
+
+# ------------------------------------ NMPCPlanner and the explicit planner
+
+NMPC_LANES = 4
+# a short budget keeps the two JAX f64 solver compiles (cold start, warm
+# start) the cost of this part; four Newton iterations leave the rounding
+# of two f64 implementations where it is
+NMPC_BUDGET = dict(gn_iters=4, al_outer=1)
+TOL_NMPC_PLAN = 1e-7
+
+
+@pytest.fixture(scope="module")
+def nmpc_planners(flagship):
+    """(JAX, port) NMPCPlanner pairs in f64 on the oval: one with its own
+    warm start, one warm-started by the flagship net."""
+    from irbfn_tpu.dynamics.params import fullscale_params as jfullscale
+    from irbfn_tpu.planning import NMPCPlanner as JNMPC
+    from irbfn_tpu.solvers.nmpc import NMPCConfig as JConfig
+    from irbfn_tpu_torch.dynamics.params import fullscale_params
+    from irbfn_tpu_torch.planning import NMPCPlanner
+    from irbfn_tpu_torch.solvers import NMPCConfig
+
+    model, variables, bounds, nets = flagship
+    jt = joval(30.0, 15.0, n_samples=512, speed=3.0)
+    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
+    jp = jfullscale(dtype=jnp.float64)
+    tp = fullscale_params(dtype=torch.float64, device="cpu")
+
+    def pair(warm):
+        jw = tw = None
+        if warm:
+            jw = JPlanner(model, variables["f64"], jt, dtype=jnp.float64,
+                          use_pallas=False, input_bounds=bounds)
+            tw = IRBFNFrenetPlanner(nets["f64"], tt, dtype=torch.float64,
+                                    input_bounds=bounds)
+        return (JNMPC(jt, jp, JConfig(**NMPC_BUDGET), warm_start_planner=jw),
+                NMPCPlanner(tt, tp, NMPCConfig(**NMPC_BUDGET),
+                            warm_start_planner=tw))
+
+    rng = np.random.default_rng(4)
+    x = np.stack([rng.uniform(0, 60, NMPC_LANES),
+                  rng.uniform(-0.2, 0.6, NMPC_LANES),
+                  rng.uniform(-0.3, 0.3, NMPC_LANES),
+                  rng.uniform(-0.1, 0.1, NMPC_LANES),
+                  rng.uniform(2.0, 4.0, NMPC_LANES),
+                  rng.uniform(-0.2, 0.2, NMPC_LANES),
+                  rng.uniform(-0.5, 0.5, NMPC_LANES)], axis=-1)
+    return pair, x
+
+
+def _assert_solutions_close(sj, st):
+    for field in ("accel", "steer_vel", "states", "kkt_residual"):
+        np.testing.assert_allclose(
+            getattr(st, field).numpy(), np.asarray(getattr(sj, field)),
+            rtol=0, atol=TOL_NMPC_PLAN, err_msg=field)
+    np.testing.assert_array_equal(st.feasible.numpy(),
+                                  np.asarray(sj.feasible))
+    np.testing.assert_array_equal(st.active_onehot.numpy(),
+                                  np.asarray(sj.active_onehot))
+
+
+def test_torch_nmpc_planner_cold_then_shifted_warm_start(nmpc_planners):
+    """Warm starts 3 (zeros, the first call) and 2 (the previous solution
+    shifted one step, the second call), and the warm start dropped when the
+    batch changes shape."""
+    pair, x = nmpc_planners
+    jn, tn = pair(warm=False)
+    with _jax_precision("f64"):
+        sj0 = jn.plan_batch(*jnp.asarray(x).T)
+        sj1 = jn.plan_batch(*jnp.asarray(x + 0.01).T)
+    st0 = tn.plan_batch(*torch.from_numpy(x).T)
+    assert st0.accel.shape == (NMPC_LANES, 5)
+    u0 = torch.stack([st0.accel, st0.steer_vel], dim=-1)
+    np.testing.assert_array_equal(
+        tn._u_prev.numpy(),
+        torch.cat([u0[:, 1:], u0[:, -1:]], dim=1).numpy())
+    st1 = tn.plan_batch(*torch.from_numpy(x + 0.01).T)
+    _assert_solutions_close(sj0, st0)
+    _assert_solutions_close(sj1, st1)
+    assert float((st1.accel - st0.accel).abs().max()) > 1e-6
+    # another batch shape: the stored warm start does not fit and is not
+    # used, so the result is the cold start's
+    cold = pair(warm=False)[1].plan_batch(*torch.from_numpy(x[:2]).T)
+    again = tn.plan_batch(*torch.from_numpy(x[:2]).T)
+    np.testing.assert_array_equal(again.accel.numpy(), cold.accel.numpy())
+
+
+def test_torch_nmpc_planner_net_warm_start_and_obs_api(nmpc_planners):
+    """Warm start 1: the attached net's predicted control sequence; and
+    the obs-dict API of one car."""
+    pair, x = nmpc_planners
+    jn, tn = pair(warm=True)
+    with _jax_precision("f64"):
+        sj = jn.plan_batch(*jnp.asarray(x).T)
+    st = tn.plan_batch(*torch.from_numpy(x).T)
+    _assert_solutions_close(sj, st)
+    cold = pair(warm=False)[1].plan_batch(*torch.from_numpy(x).T)
+    assert float((st.accel - cold.accel).abs().max()) > 1e-6
+    tt = tn.track
+    xs, ys, th = (float(v) for v in tt.frenet_to_cartesian(
+        torch.tensor(10.0, dtype=torch.float64),
+        torch.tensor(0.2, dtype=torch.float64),
+        torch.tensor(0.05, dtype=torch.float64)))
+    obs = dict(pose_x=xs, pose_y=ys, pose_theta=th, delta=0.02,
+               linear_vel_x=3.0, linear_vel_y=0.0, ang_vel_z=0.1)
+    a, sv = pair(warm=False)[1].plan(obs)
+    assert isinstance(a, float) and np.isfinite(a) and np.isfinite(sv)
+
+
+def test_torch_explicit_planner_closed_loop_matches_jax():
+    """ExplicitFrenetPlanner (multilinear lookup of a synthetic feedback
+    table) in a short closed loop, f64 sims: the same actions step by
+    step, to what the f32 raceline allows."""
+    from irbfn_tpu.planning import explicit as je
+    from irbfn_tpu_torch.planning import explicit as te
+
+    axes = [np.linspace(-1.0, 1.0, 5), np.linspace(-0.4, 0.4, 3),
+            np.linspace(0.0, 8.0, 5), np.linspace(-1.0, 1.0, 2),
+            np.linspace(2.0, 4.0, 2), np.linspace(-3.0, 3.0, 2),
+            np.linspace(-1.0, 1.0, 5), np.linspace(-0.2, 0.2, 3)]
+    inputs = np.stack([m.reshape(-1) for m in
+                       np.meshgrid(*axes, indexing="ij")], -1)
+    ey, delta, vx, vxg, epsi = (inputs[:, i] for i in (0, 1, 2, 4, 6))
+    accel = np.clip(2.0 * (vxg - vx), -9.51, 9.51)
+    sv = np.clip(-1.0 * ey - 1.5 * epsi - 0.8 * delta, -3.2, 3.2)
+    outputs = np.stack([np.tile(accel[:, None], (1, 5)),
+                        np.tile(sv[:, None], (1, 5))], axis=-1)  # (N, T, 2)
+    outputs[::97] = -999.0
+    B, N = 6, 40
+    vec = _lanes(np.float64)[:B]
+    noise = np.random.default_rng(2).standard_normal((B, 3))
+    with _jax_precision("f64"):
+        jt = joval(30.0, 15.0, n_samples=512, speed=3.0)
+        jp = je.ExplicitFrenetPlanner(
+            je.grid_table_from_arrays(inputs, outputs), jt)
+        jenv = JEnv(jt, JParams.from_vector(jnp.asarray(vec)),
+                    half_width=2.0)
+        sim = jenv.reset(s0=jnp.zeros(B), speed0=1.0, batch_shape=(B,))
+        dn = 0.05 * jnp.asarray(noise)
+        xs = sim.x.at[:, 0].add(dn[:, 0]).at[:, 1].add(dn[:, 1])
+        sim = sim._replace(x=xs.at[:, 4].add(dn[:, 2]))
+        jacts = []
+
+        def jpolicy(obs):
+            out, valid = jp.plan_batch(obs.s, obs.ey, obs.epsi, obs.delta,
+                                       obs.linear_vel_x, obs.linear_vel_y,
+                                       obs.ang_vel_z)
+            act = jnp.where(valid[:, None],
+                            jnp.stack([out[:, 0], out[:, 5]], -1), 0.0)
+            jacts.append(np.asarray(act))
+            return act
+
+        for _ in range(N):  # a host loop: the actions are recorded
+            sim = jenv.step(sim, jpolicy(jenv.observe(sim)))
+        jfinal = np.asarray(sim.x)
+    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
+    tp = te.ExplicitFrenetPlanner(
+        te.grid_table_from_arrays(inputs, outputs, device="cpu"), tt)
+    env = TrackEnv(tt, VehicleParams.from_vector(torch.from_numpy(vec)),
+                   half_width=2.0)
+    tsim = env.reset(s0=0.0, speed0=1.0, batch_shape=(B,), noise_scale=0.05,
+                     noise=torch.from_numpy(noise))
+    tacts = []
+
+    def tpolicy(obs):
+        out, valid = tp.plan_batch(obs.s, obs.ey, obs.epsi, obs.delta,
+                                   obs.linear_vel_x, obs.linear_vel_y,
+                                   obs.ang_vel_z)
+        act = torch.where(valid[:, None],
+                          torch.stack([out[:, 0], out[:, 5]], -1),
+                          torch.zeros((), dtype=out.dtype))
+        tacts.append(act.numpy())
+        return act
+
+    final, _ = env.rollout(tsim, tpolicy, N)
+    jacts, tacts = np.stack(jacts), np.stack(tacts)
+    assert np.abs(jacts).max() > 0.5  # the table steers and accelerates
+    np.testing.assert_allclose(tacts, jacts, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(final.x.numpy(), jfinal, rtol=0, atol=1e-5)
