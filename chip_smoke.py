@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (one NVIDIA GPU).
 
-Drives ``irbfn_tpu_torch`` through its four paths: the learned Frenet
+Drives ``irbfn_tpu_torch`` through its five paths: the learned Frenet
 planner in closed loop, with the flagship ``frenet_wide_pr1`` WCRBF net
 (R=16 regions, K=512 kernels, F=8 inputs, O=10 outputs, per-region heads;
 kernel ``rbf_forward``); the goal-MPC path (kernel ``admm_solve``): the
@@ -12,8 +12,11 @@ fit-and-train path, which makes a goal net from the lattice just solved
 Adam fine-tune, closed loop); and the Frenet chain, which starts from no
 table at all: the batched NMPC solver makes one on the card, the flagship
 recipe fits it, and the fitted net, the table itself and the solver each
-drive the closed loop. Each phase prints one line, and any failure exits
-non-zero:
+drive the closed loop; and the map world and the bank: the 12-arm
+grip-adaptive bank (``rbf_forward`` twelve times a step), the cartesian
+planner, the flagship in a rasterized map with scans and iTTC, and the
+Oschersleben line through ``eval_closed_loop`` with a track bundle (both
+kernels). Each phase prints one line, and any failure exits non-zero:
 
 1. device: requires CUDA (never falls back to the CPU); prints the card's
    name and power limit as nvidia-smi reports them;
@@ -90,6 +93,29 @@ non-zero:
     multilinear lookup (1000 lanes x 600 steps) and ``NMPCPlanner`` in f32
     (39 lanes x 4 steps, from its own warm start and from the net's).
 
+24. the 12-arm grip-adaptive bank (``bank6_pr_mu0.10`` .. ``1.20``, R=16,
+    K=256, per-region heads) through ``rollout_stateful`` on phase 5's sweep
+    with the raceline's speed x2.5 (at 3 m/s the grip observer's speed gate
+    never opens): every arm's kernel forward against its plain version at
+    the loop's batch, then 1000 lanes x 600 steps against the JAX golden
+    (done, laps, mean |ey|, final grip estimate, the arm each lane drove with
+    at each step), 12 forwards per control step;
+25. the cartesian planner (``cart_c1_pr``, R=16, K=512, F=7, setpoint
+    mode): ``plan_batch`` against the JAX f64 golden on seeded poses, its
+    kernel against the plain version, then the same 1000-lane sweep against
+    the JAX golden;
+26. the map world: the oval rasterized into an occupancy grid on the card,
+    64-beam ``trace_rays`` against the JAX goldens and timed, then the
+    flagship over the 1000-lane sweep with scans, iTTC and a 0.15 m disc
+    against the map (no corridor), against the JAX golden;
+27. the Oschersleben line (``data/Oschersleben_raceline_feasible.csv``) in a
+    map rasterized around it, written as a track bundle: the eval script's
+    3 x 3 flags (27 lanes, no start noise, one attempt) through
+    ``eval_closed_loop.run`` for the flagship (``rbf_forward``) and the
+    goal-MPC solver (``admm_solve``), each kernel against its plain version
+    at the path's shape, the loops against the JAX golden with the steps
+    whose goal lookahead reads the CSV's faulty seam rows masked.
+
 The last two lines are a JSON object naming both kernels with their
 launches, errors, times and bounds, and the line
 ``{"ok": true, "device": {...}}``.
@@ -116,6 +142,12 @@ GOAL_GOLDEN = os.path.join(ASSETS, "goal_mpc_golden.npz")
 TRAIN_GOLDEN = ASSET + "_train_golden.npz"
 NMPC_GOLDEN = os.path.join(ASSETS, "nmpc_golden.npz")
 TUBE_NPZ = os.path.join(ROOT, "data", "spielberg_tube.npz")
+BANK_GOLDEN = os.path.join(ASSETS, "bank6_golden.npz")
+CART_ASSET = os.path.join(ASSETS, "cart_c1_pr")
+MAP_GOLDEN = os.path.join(ASSETS, "map_golden.npz")
+OSCH_CSV = os.path.join(ROOT, "data", "Oschersleben_raceline_feasible.csv")
+# rows of that CSV whose heading is off by 2*pi/3 (ROADMAP.md, faults, R2)
+OSCH_SEAM_ROWS = (0, 799)
 KERNELS = {
     "rbf_forward": {"name": "rbf_forward", "route": "cuda",
                     "source": "irbfn_tpu_torch/ops/csrc/rbf_forward.cu",
@@ -268,6 +300,58 @@ TOL_LOOP_F32_MEDIAN = 5e-2
 #   ill-conditioned as the committed flagship's, so its kernel forward is
 #   held to the module path at TOL_FLAGSHIP (measured 4.4e-4);
 TOL_FIT_PROBE = 2e-2
+# - the grip-adaptive bank against its JAX golden. The observer divides the
+#   measured lateral change (a difference of two f32 states over 0.1 s) by
+#   a tire prediction that may be as small as its 0.5 rad/s^2 gate, so f32
+#   rounding moves a lane's g estimate, and a lane whose g lies near the
+#   midpoint of two arms' mus switches arm one step earlier or later: from
+#   there the lane drives another net. The port's plain version on a CPU
+#   matched the golden's arm in 84.8% of the lane-steps (99% over the first
+#   60 steps; 389 lanes differ somewhere, each first where its g lay within
+#   0.007 (median) of a midpoint), 4 lanes' done flags and 38 lanes' laps
+#   differed, per-lane mean |ey| by 0.39 mm (median) and 139 mm at most,
+#   the sweep's mean |ey| by 0.11 mm, the final g by 7.7e-5 (median) and
+#   0.28 (90th percentile). The JAX package against itself, its start
+#   states nudged by 1e-6 (relative): 83.5% of lane-steps on the same arm,
+#   402 lanes differ somewhere, 3 done flags and 43 laps, per-lane mean |ey|
+#   up to 410 mm, the sweep's by 0.84 mm, final g 1.4e-4 / 0.27
+#   (``scripts/export_torch_ckpt.py --bank_golden --nudge 1e-6``). In f64
+#   the two packages drive the same arms (tests/test_torch_grip.py), so
+#   these bound f32 noise:
+TOL_BANK_ARM_SHARE = 0.75  # lane-steps whose arm matches, at least
+TOL_BANK_ARM_SHARE_EARLY = 0.97  # the same over the first 60 steps
+TOL_BANK_DONE_LANES = 10
+TOL_BANK_LAP_LANES = 80
+TOL_BANK_EY_MEDIAN_MM = 5.0
+TOL_BANK_EY_SWEEP_MM = 2.0
+TOL_BANK_G_MEDIAN = 1e-3  # median over lanes of the final g's difference
+# - the cartesian planner's f32 plan against the JAX f64 golden (the port's
+#   plain f32 version on a CPU: 7.8e-5 in a control) and its closed loop
+#   against the JAX f32 golden: 311 of the 1000 lanes leave the corridor,
+#   and a lane that leaves it near the end does so a step earlier or later
+#   (the port's plain version on a CPU: 1 lane's done flag and no lap
+#   differed; per-lane mean |ey| 0.74 um median, 14 mm at the 99th
+#   percentile, 67 mm at most; the sweep's mean |ey| 0.046 mm);
+TOL_CART_PLAN = 1e-3
+TOL_CART_DONE_LANES = 10
+TOL_CART_EY_MEDIAN_MM = 5.0
+TOL_CART_EY_SWEEP_MM = 0.5
+# - f32 rays against JAX's f32 rays: a ray grazing a wall has not converged
+#   after 64 sphere-tracing steps, and each step's f32 rounding moves where
+#   it stops (tests/test_torch_map.py: 11 of 8,192 rays over 1e-4 m, 5.1 mm
+#   at most); the Frenet loop in the map world is held as phase 5's (the
+#   port's plain version on a CPU: per-lane 3.2 mm at most, sweep 0.0009
+#   mm, the same done flags and laps);
+TOL_RAYS = 1e-4  # 99% of the rays
+TOL_RAYS_ANY = 1e-2  # every ray
+# - the Oschersleben loops (27 lanes) against the JAX golden, the steps
+#   whose lookahead reads a seam row masked:
+#   the port's plain versions on a CPU (flagship / goal-MPC solver) left
+#   the same lanes done with the same laps, per-lane mean |ey| 0.025 / 0.060
+#   mm (median), 2.5 / 5.7 mm at most;
+TOL_OSCH_DONE_LANES = 3
+TOL_OSCH_EY_MEDIAN_MM = 5.0
+TOL_OSCH_EY_LANE_MM = 50.0
 TOL_F32_FLAGS = 0.05
 TOL_F32_DU = (2e-3, 5e-2)
 TOL_F32_GAP = (1e-5, 1e-3)
@@ -1780,6 +1864,432 @@ def frenet_chain(device, golden, flagship_loop):
     return launches["rbf_forward"], loop_launches
 
 
+# ------------------------------------------ the map world and the bank
+
+def _asset(path, device):
+    """A committed asset's (model, config), f32, on ``device``."""
+    import torch
+
+    from irbfn_tpu_torch.train import load_model
+
+    model, config = load_model(path + ".json", path + ".npz", device=device,
+                               dtype=torch.float32)
+    return model.eval(), config
+
+
+def _kernel_vs_plain(label, model, x):
+    """``model``'s kernel forward on ``x`` (its net inputs, unscaled) against
+    the plain version: TOL_FLAGSHIP, for the bank's arms and cart_c1_pr are
+    fits as ill-conditioned as the flagship (sum |w| 1.3e5 and 5.4e4 per
+    output; their plain f32 forwards on a CPU were up to 4.3e-4 and 7.0e-5
+    from f64)."""
+    from irbfn_tpu_torch.ops import wcrbf_params_to_kernel
+
+    xs = (x * model.input_scale).contiguous()
+    return _compare(label, xs, wcrbf_params_to_kernel(model), TOL_FLAGSHIP)
+
+
+def _against(final, traj, g):
+    """A 1000-lane loop against a golden's ``loop_*``: per-lane mean |ey|
+    differences (mm), lanes whose done or laps differ, the sweep's mean |ey|
+    difference (mm)."""
+    from irbfn_tpu_torch.sim import deviation_metrics
+
+    ey = deviation_metrics(traj)[0].cpu().numpy()
+    done = final.done.cpu().numpy()
+    laps = final.laps.cpu().numpy()
+    return dict(ey=ey, done=done, laps=laps,
+                d_ey_mm=1e3 * np.abs(ey - g["loop_ey_mean"]),
+                n_done=int((done != g["loop_done"]).sum()),
+                n_laps=int((laps != g["loop_laps"]).sum()),
+                d_sweep_mm=1e3 * abs(float(ey.mean())
+                                     - float(g["loop_ey_mean"].mean())))
+
+
+def _loop_line(name, r, g, wall, launches, n_lanes):
+    return (f"{name}: {int((~r['done']).sum())}/{n_lanes} lanes completed "
+            f"(JAX {int((~g['loop_done']).sum())}), mean|ey| "
+            f"{r['ey'].mean():.4f} m (JAX {g['loop_ey_mean'].mean():.4f}), "
+            f"sweep diff {r['d_sweep_mm']:.4f} mm, per-lane diff median "
+            f"{np.median(r['d_ey_mm']):.4f} mm, max {r['d_ey_mm'].max():.2f} "
+            f"mm; {r['n_done']} lanes' done and {r['n_laps']} lanes' laps "
+            f"differ; {N_STEPS} steps in {wall:.2f} s = "
+            f"{N_STEPS / wall:.1f} control steps/s; launches {launches}, "
+            + ", ".join(f"{k} {v / N_STEPS:g} per step"
+                        for k, v in launches.items()))
+
+
+def phase_grip_bank(device, g):
+    """Phase 24: the 12-arm grip-adaptive bank through rollout_stateful."""
+    import torch
+
+    from irbfn_tpu_torch.planning import GripAdaptiveFrenetPlanner
+    from irbfn_tpu_torch.planning.grip import GripConfig
+    from irbfn_tpu_torch.train import input_bounds_from_config
+    from irbfn_tpu_torch.utils.profiling import sweep_env
+
+    mus = g["arm_mus"]
+    arms = [_asset(os.path.join(ASSETS, f"bank6_pr_mu{m:.2f}"), device)
+            for m in mus]
+    env, sim = sweep_env(device, "accl", g,
+                         speed_scale=float(g["flag_speed_scale"]))
+    planner = GripAdaptiveFrenetPlanner(
+        arms[0][0], [a for a, _ in arms], mus, env.track,
+        input_bounds=input_bounds_from_config(arms[0][1]),
+        grip_cfg=GripConfig(g0=float(g["flag_g0"])),
+        pace_lo=float(g["flag_pace_lo"]), pace_hi=float(g["flag_pace_hi"]),
+        pace_margin=float(g["flag_pace_margin"]))
+    # every arm's kernel at the loop's batch, on the first observation's
+    # mirrored, clamped net inputs
+    obs = env.observe(sim)
+    rl = env.track.raceline
+    from irbfn_tpu_torch.sim.track import horizon_goal_speed, interp_wrapped
+
+    curv = interp_wrapped(rl.ss, rl.ks, obs.s, rl.length)
+    vxg = horizon_goal_speed(rl, obs.s, obs.linear_vel_x, 0.5)
+    x = torch.stack([obs.ey, obs.delta, obs.linear_vel_x, obs.linear_vel_y,
+                     vxg, obs.ang_vel_z, obs.epsi, curv], dim=-1)
+    x = x + torch.as_tensor(np.random.default_rng(2).normal(
+        0.0, 0.3, tuple(x.shape)), dtype=x.dtype, device=device)
+    e_arm = max(_kernel_vs_plain(f"bank arm {i}", arm, x)
+                for i, arm in enumerate(planner.bank))
+    step = planner.policy()
+    g_log = []
+
+    def policy(state, obs):
+        action, state = step(state, obs)
+        g_log.append(state.g)
+        return action, state
+
+    B = sim.s.numel()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    final, state, traj = env.rollout_stateful(sim, policy,
+                                              planner.init_state((B,)),
+                                              N_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["rbf_forward"] == len(mus) * N_STEPS,
+          f"bank: rbf_forward launches {launches['rbf_forward']} != "
+          f"{len(mus)} arms x {N_STEPS} steps")
+    check(bool(torch.isfinite(traj.obs.ey).all()), "NaN in the bank's loop")
+    r = _against(final, traj, g)
+    g_all = torch.stack(g_log).cpu().numpy()
+    arm = np.argmin(np.abs(mus - np.clip(g_all, mus[0], mus[-1])[..., None]),
+                    axis=-1)
+    same = arm == g["loop_arm"][:N_STEPS]
+    lanes = np.flatnonzero(~same.all(0))
+    first = (~same).argmax(0)[lanes]
+    mid = (mus[1:] + mus[:-1]) / 2
+    near = np.abs(g_all[first, lanes][:, None] - mid).min(-1)
+    d_g = np.abs(state.g.cpu().numpy() - g["loop_g"])
+    share, early = float(same.mean()), float(same[:60].mean())
+    print(_loop_line("grip-adaptive bank (12 arms, rollout_stateful)", r, g,
+                     wall, launches, B)
+          + f" (12 forwards = 24 kernel launches per step); kernel vs plain "
+          f"on every arm at B={B} max|err| {e_arm:.2e}; arm equal to "
+          f"JAX's in {100 * share:.2f}% of lane-steps ({100 * early:.2f}% "
+          f"over the first 60 steps); {lanes.size} lanes drive another arm "
+          f"somewhere, first where their g lay within "
+          f"{np.median(near) if lanes.size else 0.0:.4f} (median; 90th "
+          f"percentile {np.percentile(near, 90) if lanes.size else 0.0:.4f})"
+          " of a "
+          f"midpoint of two arms' mus; arms used (lane-steps) "
+          f"{np.bincount(arm.reshape(-1), minlength=len(mus)).tolist()}; "
+          f"final g median {np.median(state.g.cpu().numpy()):.3f}, diff to "
+          f"JAX median {np.median(d_g):.2e}, 90th percentile "
+          f"{np.percentile(d_g, 90):.2e}", flush=True)
+    check(share >= TOL_BANK_ARM_SHARE and early >= TOL_BANK_ARM_SHARE_EARLY,
+          f"bank arms match JAX's in {share:.4f} of lane-steps "
+          f"({early:.4f} early)")
+    check(r["n_done"] <= TOL_BANK_DONE_LANES
+          and r["n_laps"] <= TOL_BANK_LAP_LANES,
+          f"bank: {r['n_done']} lanes' done, {r['n_laps']} lanes' laps differ")
+    check(float(np.median(r["d_ey_mm"])) <= TOL_BANK_EY_MEDIAN_MM
+          and r["d_sweep_mm"] <= TOL_BANK_EY_SWEEP_MM,
+          f"bank mean|ey| vs JAX: median {np.median(r['d_ey_mm']):.3f} mm, "
+          f"sweep {r['d_sweep_mm']:.3f} mm")
+    check(float(np.median(d_g)) <= TOL_BANK_G_MEDIAN,
+          f"bank final g vs JAX: median {np.median(d_g):.3e}")
+    return launches["rbf_forward"], e_arm
+
+
+def phase_cartesian(device, g):
+    """Phase 25: IRBFNPlanner with cart_c1_pr, plan_batch then the loop."""
+    import torch
+
+    from irbfn_tpu_torch.planning import IRBFNPlanner
+    from irbfn_tpu_torch.sim import oval_track
+    from irbfn_tpu_torch.train import input_bounds_from_config
+    from irbfn_tpu_torch.utils.profiling import sweep_env
+
+    net, conf = _asset(CART_ASSET, device)
+    kw = dict(mirror=bool(conf.get("mirror", True)),
+              sv_ind=int(conf["out_features"]) // 2,
+              input_bounds=input_bounds_from_config(conf))
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device=device)
+    planner = IRBFNPlanner(net, track, **kw)
+    pose = torch.as_tensor(g["plan_pose"], dtype=torch.float32, device=device)
+    res = planner.plan_batch(*pose.T)
+    e_plan = {k: _max_err(v.cpu(), torch.from_numpy(g[f"plan_{k}"]))
+              for k, v in res._asdict().items()}
+    bad = {k: e for k, e in e_plan.items() if not e <= TOL_CART_PLAN}
+    check(not bad, f"cartesian plan_batch vs JAX f64: {bad}")
+    env, sim = sweep_env(device, "accl", g)
+    planner = IRBFNPlanner(net, env.track, **kw)
+    obs = env.observe(sim)
+    x = torch.stack([obs.linear_vel_x, obs.pose_x, obs.pose_y,
+                     obs.pose_theta, obs.linear_vel_x, obs.beta,
+                     obs.ang_vel_z], dim=-1)
+    e_kernel = _kernel_vs_plain("cart_c1_pr", net, torch.minimum(torch.maximum(
+        x, planner.input_bounds[:, 0]), planner.input_bounds[:, 1]))
+
+    def policy(obs):
+        r = planner.plan_batch(obs.pose_x, obs.pose_y, obs.pose_theta,
+                               obs.delta, obs.linear_vel_x, obs.beta,
+                               obs.ang_vel_z)
+        return torch.stack([r.accel, r.steer_vel], dim=-1)
+
+    final, traj, launches, wall = _drive(env, sim, policy, "rbf_forward")
+    r = _against(final, traj, g)
+    print(f"cartesian planner (cart_c1_pr, setpoint mode): plan_batch vs JAX "
+          f"f64 on {len(pose)} seeded poses "
+          + ", ".join(f"{k} {e:.2e}" for k, e in e_plan.items())
+          + f" (tol {TOL_CART_PLAN}); kernel vs plain at B={sim.s.numel()} "
+          f"max|err| {e_kernel:.2e}; "
+          + _loop_line("closed loop", r, g, wall, launches, sim.s.numel()),
+          flush=True)
+    check(r["n_done"] <= TOL_CART_DONE_LANES
+          and r["n_laps"] <= TOL_CART_DONE_LANES,
+          f"cartesian loop: {r['n_done']} lanes' done, {r['n_laps']} lanes' "
+          "laps differ from JAX")
+    check(float(np.median(r["d_ey_mm"])) <= TOL_CART_EY_MEDIAN_MM
+          and r["d_sweep_mm"] <= TOL_CART_EY_SWEEP_MM,
+          f"cartesian mean|ey| vs JAX: median {np.median(r['d_ey_mm']):.3f} "
+          f"mm, sweep {r['d_sweep_mm']:.3f} mm")
+    return launches["rbf_forward"]
+
+
+def phase_map_world(device, g, model, config):
+    """Phase 26: the rasterized oval, scans, iTTC, the flagship's loop."""
+    import torch
+
+    from irbfn_tpu_torch.planning import IRBFNFrenetPlanner
+    from irbfn_tpu_torch.sim import (ScanSpec, oval_track, rasterize_track,
+                                     trace_rays)
+    from irbfn_tpu_torch.train import input_bounds_from_config
+    from irbfn_tpu_torch.utils.profiling import sweep_env
+
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device=device)
+    t0 = time.perf_counter()
+    omap = rasterize_track(track, half_width=2.0)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    pose = torch.as_tensor(g["ray_pose"], device=device)
+    rays = trace_rays(omap, pose[:, 0], pose[:, 1], pose[:, 2],
+                      ScanSpec()).cpu().numpy()
+    errs = {k: np.abs(rays - g[f"ray_{k}"]) for k in ("f32", "f64")}
+    q99 = {k: float(np.quantile(e, 0.99)) for k, e in errs.items()}
+    for k, e in errs.items():
+        check(q99[k] <= TOL_RAYS and float(e.max()) <= TOL_RAYS_ANY,
+              f"trace_rays vs JAX {k}: 99th percentile {q99[k]:.2e}, max "
+              f"{e.max():.2e}")
+    env, sim = sweep_env(device, "accl", g, half_width=None, occ_map=omap,
+                         car_radius=0.15, scan_spec=ScanSpec(),
+                         enable_ttc=True)
+    x = sim.x
+    with torch.no_grad():
+        ms_rays = _time_ms(lambda: trace_rays(omap, x[:, 0], x[:, 1],
+                                              x[:, 4], ScanSpec()),
+                           iters=20, warmup=3)
+    planner = IRBFNFrenetPlanner(model, env.track,
+                                 input_bounds=input_bounds_from_config(config))
+
+    def policy(obs):
+        r = planner.plan_batch(obs.s, obs.ey, obs.epsi, obs.delta,
+                               obs.linear_vel_x, obs.linear_vel_y,
+                               obs.ang_vel_z)
+        return torch.stack([r.accel, r.steer_vel], dim=-1)
+
+    final, traj, launches, wall = _drive(env, sim, policy, "rbf_forward")
+    r = _against(final, traj, g)
+    check(traj.obs.scan is not None and tuple(traj.obs.scan.shape)
+          == (N_STEPS, sim.s.numel(), ScanSpec().n_beams),
+          "the map world's observations carry no scans")
+    print(f"map world: the oval rasterized at half width 2.0 "
+          f"({tuple(omap.dist.shape)} cells, {t_map:.2f} s on the host); "
+          f"trace_rays (64 beams, 64 steps) on {len(pose)} seeded poses vs "
+          f"JAX f32 / f64: 99th percentile {q99['f32']:.2e} / "
+          f"{q99['f64']:.2e} m, max {errs['f32'].max():.2e} / "
+          f"{errs['f64'].max():.2e} m (tol {TOL_RAYS}, {TOL_RAYS_ANY}); "
+          f"one scan of the 1000 lanes {ms_rays:.3f} ms (CUDA events, 20 "
+          "calls); "
+          + _loop_line("the flagship with scans, iTTC and a 0.15 m disc", r,
+                       g, wall, launches, sim.s.numel()), flush=True)
+    check(r["n_done"] == 0, f"map world: {r['n_done']} lanes differ from "
+          "JAX in done")
+    check(r["n_laps"] <= TOL_LAP_LANES and float(r["d_ey_mm"].max())
+          <= TOL_EY_LANE_MM and r["d_sweep_mm"] <= TOL_EY_SWEEP_MM,
+          f"map world vs JAX: {r['n_laps']} lanes' laps, per-lane "
+          f"{r['d_ey_mm'].max():.2f} mm, sweep {r['d_sweep_mm']:.4f} mm")
+    return launches["rbf_forward"], ms_rays
+
+
+def _seam_rows(points, obs):
+    """Per step and lane, whether the goal lookahead reads a seam row of
+    the Oschersleben CSV (planning/planner.py:_lookahead_goal's rows)."""
+    x = obs.pose_x.cpu().numpy()
+    y = obs.pose_y.cpu().numpy()
+    v = obs.linear_vel_x.cpu().numpy()
+    pts = points.cpu().numpy()
+    d2 = ((np.stack([x, y], -1)[..., None, :] - pts) ** 2).sum(-1)
+    near = d2.argmin(-1)
+    seg = np.linalg.norm(pts[1] - pts[0])
+    la = np.maximum(np.maximum(v, 0.1) * 0.5, 0.1)
+    goal = (near + np.ceil(la / seg).astype(np.int64)) % len(pts)
+    return np.isin(goal, OSCH_SEAM_ROWS)
+
+
+def phase_oschersleben(device, g):
+    """Phase 27: the flagship and the goal-MPC solver on the Oschersleben
+    line, through eval_closed_loop.run with a track bundle."""
+    import shutil
+
+    import torch
+
+    from irbfn_tpu_torch.ops import admm
+    from irbfn_tpu_torch.sim import eval_closed_loop as ev
+    from irbfn_tpu_torch.sim.map import (raceline_from_csv, rasterize_track,
+                                         save_map_yaml)
+    from irbfn_tpu_torch.sim.track import Track
+
+    hw = float(g["osch_half_width"])
+    n_steps = int(g["osch_flag_n_steps"])
+    flags = ["--num_mu", "3", "--mu_min", "0.7", "--mu_max", "1.1",
+             "--num_cs", "3", "--cs_min", "3", "--cs_max", "7",
+             "--num_trials", "3", "--n_steps", str(n_steps),
+             "--noise_scale", "0", "--max_retries", "0", "--car_radius",
+             str(float(g["osch_flag_car_radius"])), "--device", str(device)]
+    # the ADMM kernel at the planner's shape (27 one-goal families)
+    rng = np.random.default_rng(3)
+    F = len(g["osch_mu"])
+    goals = np.stack([rng.uniform(0.5, 4.0, F), rng.uniform(0.0, 1.0, F),
+                      rng.uniform(1.0, 8.0, F), rng.uniform(-0.5, 0.5, F)],
+                     axis=1)
+    ops = _admm_operands(
+        torch.as_tensor(rng.uniform(1.0, 8.0, F), dtype=torch.float32,
+                        device=device),
+        torch.as_tensor(goals.reshape(F, 1, 4), dtype=torch.float32,
+                        device=device))
+    e_admm, flips, _, _ = _admm_errors(ops, 600, admm.admm_solve,
+                                       admm.admm_solve_reference)
+    _check_admm(f"Oschersleben shape F={F} G=1", e_admm, flips)
+    out, lines = {}, []
+    with tempfile.TemporaryDirectory() as d:
+        bundle = os.path.join(d, "osch")
+        os.makedirs(bundle)
+        track = Track(raceline_from_csv(OSCH_CSV, device=device))
+        t0 = time.perf_counter()
+        omap = rasterize_track(track, half_width=hw)
+        save_map_yaml(omap.dist.cpu().numpy() > 0, float(omap.resolution),
+                      (float(omap.origin_x), float(omap.origin_y), 0.0),
+                      os.path.join(bundle, "osch_map.yaml"))
+        shutil.copy(OSCH_CSV, os.path.join(bundle, "osch_raceline.csv"))
+        t_bundle = time.perf_counter() - t0
+        for name, kernel, extra in (
+                ("irbfn", "rbf_forward",
+                 ["--config_f", ASSET + ".json", "--ckpt", ASSET + ".npz"]),
+                ("goal_mpc", "admm_solve", [])):
+            args = ev.parse_args(flags + extra + [
+                "--planner", name, "--map_dir", bundle, "--line_csv",
+                OSCH_CSV, "--out_name", os.path.join(d, name)])
+            seen = {}
+            e_kernel = None
+            if name == "irbfn":
+                model, _ = _asset(ASSET, device)
+                x = torch.as_tensor(np.random.default_rng(4).uniform(
+                    -1.0, 1.0, (F, 8)), dtype=torch.float32, device=device)
+                e_kernel = _kernel_vs_plain(f"flagship B={F}", model,
+                                            x * 0.5 + torch.tensor(
+                                                [0, 0, 4, 0, 5, 0, 0, 0],
+                                                device=device))
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            ev.run(args, on_attempt=lambda a, f, t, p: seen.update(
+                final=f, traj=t))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            check(launches[kernel] == n_steps,
+                  f"Oschersleben {name}: {kernel} launches "
+                  f"{launches[kernel]} != {n_steps} steps")
+            final, traj = seen["final"], seen["traj"]
+            abs_ey = traj.obs.ey.abs().cpu().numpy()
+            check(np.isfinite(abs_ey).all(), f"NaN in the {name} loop")
+            ref_ey = g[f"osch_{name}_abs_ey"]
+            seam = (_seam_rows(track.raceline.points, traj.obs)
+                    | np.isin(g[f"osch_{name}_rows"][..., 1], OSCH_SEAM_ROWS))
+            keep = ~seam
+            d_ey = 1e3 * np.abs((abs_ey * keep).sum(0) / keep.sum(0)
+                                - (ref_ey * keep).sum(0) / keep.sum(0))
+            done = final.done.cpu().numpy()
+            laps = final.laps.cpu().numpy()
+            n_done = int((done != g[f"osch_{name}_done"]).sum())
+            n_laps = int((laps != g[f"osch_{name}_laps"]).sum())
+            out[name] = dict(d_ey=d_ey, n_done=n_done, n_laps=n_laps,
+                             launches=launches[kernel])
+            lines.append(
+                f"{name}: {int((~done).sum())}/{F} lanes completed (JAX "
+                f"{int((~g[f'osch_{name}_done']).sum())}), laps "
+                f"{laps.tolist()}, mean|ey| {abs_ey.mean():.4f} m; "
+                f"{int(seam.sum())} of {seam.size} lane-steps masked (the "
+                f"lookahead reads a seam row); per-lane mean |ey| diff to "
+                f"JAX median {np.median(d_ey):.3f} mm, max {d_ey.max():.2f} "
+                f"mm; {n_done} lanes' done and {n_laps} lanes' laps differ; "
+                f"{n_steps} steps in {wall:.2f} s = {n_steps / wall:.1f} "
+                f"control steps/s; launches {launches} "
+                f"({launches[kernel] / n_steps:g} {kernel} per step)"
+                + ("" if e_kernel is None else
+                   f"; kernel vs plain at B={F} max|err| {e_kernel:.2e}"))
+    print(f"Oschersleben line (raceline_from_csv, {track.raceline.n_points} "
+          f"rows; map rasterized at half width {hw} m, "
+          f"{tuple(omap.dist.shape)} cells, bundle written in "
+          f"{t_bundle:.2f} s), the eval script's 3 x 3 flags, {F} lanes, "
+          f"one attempt, no start noise; ADMM kernel vs plain at F={F}, "
+          f"G=1: controls {e_admm['controls']:.2e}: " + "; ".join(lines),
+          flush=True)
+    for name, o in out.items():
+        check(o["n_done"] <= TOL_OSCH_DONE_LANES
+              and o["n_laps"] <= TOL_OSCH_DONE_LANES,
+              f"Oschersleben {name}: {o['n_done']} lanes' done, "
+              f"{o['n_laps']} lanes' laps differ from JAX")
+        check(float(np.median(o["d_ey"])) <= TOL_OSCH_EY_MEDIAN_MM
+              and float(o["d_ey"].max()) <= TOL_OSCH_EY_LANE_MM,
+              f"Oschersleben {name}: per-lane mean |ey| diff median "
+              f"{np.median(o['d_ey']):.3f} mm, max {o['d_ey'].max():.2f} mm")
+    return out["irbfn"]["launches"], out["goal_mpc"]["launches"]
+
+
+def worlds(device, model, config):
+    """Phases 24-27. Returns the rbf_forward launches of each path and the
+    admm_solve launches of the Oschersleben goal-MPC loop."""
+    with np.load(BANK_GOLDEN) as z:
+        bank = {k: z[k] for k in z.files}
+    with np.load(CART_ASSET + "_golden.npz") as z:
+        cart = {k: z[k] for k in z.files}
+    with np.load(MAP_GOLDEN) as z:
+        world = {k: z[k] for k in z.files}
+    rbf = {}
+    rbf["grip_bank"], _ = phase_grip_bank(device, bank)
+    rbf["cartesian"] = phase_cartesian(device, cart)
+    rbf["map_world"], _ = phase_map_world(device, world, model, config)
+    rbf["oschersleben"], admm = phase_oschersleben(device, world)
+    return rbf, admm
+
+
 def main() -> int:
     import torch
 
@@ -1823,16 +2333,22 @@ def main() -> int:
     phase_train_golden(device)
     frenet_launches, loop_launches = frenet_chain(device, golden,
                                                   flagship_loop)
+    # the map world and the bank
+    world_rbf, osch_admm = worlds(device, model, config)
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [
         dict(KERNELS["rbf_forward"],
-             launches=rbf_launches + frenet_launches + loop_launches,
+             launches=(rbf_launches + frenet_launches + loop_launches
+                       + sum(world_rbf.values())),
              launches_frenet_loop=rbf_launches,
              launches_frenet_chain=frenet_launches + loop_launches,
+             **{f"launches_{k}": v for k, v in world_rbf.items()},
              launches_fit_eval=chain_launches["rbf_forward"],
              max_abs_err=err_1024, **rbf_times),
-        dict(KERNELS["admm_solve"], launches=admm_launches,
+        dict(KERNELS["admm_solve"], launches=admm_launches + osch_admm,
+             launches_goal_loop=admm_launches,
+             launches_oschersleben=osch_admm,
              launches_fit_eval=chain_launches["admm_solve"],
              max_abs_err=admm_err, **admm_times)]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ heads over normalised gammas.
 - when autograd records and the input or any parameter requires a gradient,
   the **module path** (``forward_module``): plain differentiable tensor
   operations on whatever device the tensors are, the counterpart of the
-  flax module that JAX training differentiates;
+  module that JAX training differentiates;
 - otherwise the **fused op** ``ops/rbf.py:wcrbf_forward``, which on a CUDA
   tensor launches the hand-written kernel (or raises) and on a CPU tensor
   runs its plain version.
@@ -22,8 +22,8 @@ launch raises.
 ``DeeperWCRBFNet`` (an MLP head over the blended features), ``MLP`` (the
 plain baseline) and ``ClusterWCRBFNet`` (a learned softmax gate; returns
 ``(y, logits)``) run through plain tensor operations only, as they do in
-the JAX package. Every Dense weight keeps flax's ``(in, out)`` layout, so a
-JAX checkpoint maps one to one (``train/checkpoints.py``).
+the JAX package. Every Dense weight keeps the JAX package's ``(in, out)``
+layout, so a JAX checkpoint maps one to one (``train/checkpoints.py``).
 """
 
 from __future__ import annotations
@@ -103,8 +103,9 @@ def region_features(x, region_weights, centers, log_sigs, basis_func,
 
 
 def _dense_init(gen, fan_in: int, fan_out: int) -> torch.Tensor:
-    """flax's default Dense kernel initialiser (LeCun normal: a normal of
-    variance 1/fan_in truncated at two standard deviations), ``(in, out)``."""
+    """The JAX package's default Dense kernel initialiser (LeCun normal: a
+    normal of variance 1/fan_in truncated at two standard deviations),
+    ``(in, out)``."""
     w = torch.empty((fan_in, fan_out), dtype=torch.float64)
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
     return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
@@ -145,10 +146,10 @@ class _RBFModule(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed: int, centers=None):
-        """Seeded initial values, the flax defaults: Dense kernels LeCun
-        normal and biases zero; centers unit normal, or ``centers`` ((K, F),
-        shared by every region, or (R, K, F)) as a warm start; log-widths
-        zero. Drawn on the host from ``torch.Generator().manual_seed(seed)``
+        """Seeded initial values, the JAX package's defaults: Dense kernels
+        LeCun normal and biases zero; centers unit normal, or ``centers``
+        ((K, F), shared by every region, or (R, K, F)) as a warm start;
+        log-widths zero. Drawn on the host from ``torch.Generator().manual_seed(seed)``
         whatever the module's device."""
         gen = torch.Generator().manual_seed(int(seed))
         for name, p in self.named_parameters():
@@ -168,8 +169,8 @@ class _RBFModule(nn.Module):
 class WCRBFNet(_RBFModule):
     """Piecewise (region-partitioned) RBF network with a linear head.
 
-    Parameters keep the flax layout, so a JAX checkpoint maps one to one
-    (``train/checkpoints.py:params_from_jax``): ``centers`` (R, K, F),
+    Parameters keep the JAX package's layout, so a JAX checkpoint maps one
+    to one (``train/checkpoints.py:params_from_jax``): ``centers`` (R, K, F),
     ``log_sigs`` (R, K), ``head_kernel`` (n_feat, O) and ``head_bias`` (O,),
     where n_feat is K for ``head_mode="shared"`` and R*K + R for
     ``"per_region"`` (block features ``[gamma_r phi_rk ; gamma_r]``).
@@ -177,7 +178,7 @@ class WCRBFNet(_RBFModule):
     ``centers`` ((K, F) or (R, K, F)) warm-starts the center bank;
     ``fixed_centers`` freezes it and ``fixed_width`` the log-widths as well
     (frozen tensors stay parameters of the ``state_dict`` with
-    ``requires_grad=False``, and a checkpoint keeps them in flax's
+    ``requires_grad=False``, and a checkpoint keeps them in the JAX package's
     ``constants`` collection). ``seed`` draws initial values
     (``reset_parameters``); without it every weight starts at zero, to be
     loaded or fitted.

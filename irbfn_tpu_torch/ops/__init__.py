@@ -1,7 +1,10 @@
 """Device ops: the fused RBF forward and the goal-family ADMM solve, each a
-hand-written CUDA kernel with its plain PyTorch version."""
+hand-written CUDA kernel with its plain PyTorch version; and the raceline
+geometry primitives (plain tensor code)."""
 
 from irbfn_tpu_torch.ops import admm, rbf
+from irbfn_tpu_torch.ops.geometry import (intersect_point, nearest_point,
+                                          rotation_matrix, zero_to_2pi)
 from irbfn_tpu_torch.ops.admm import admm_solve, admm_solve_reference
 from irbfn_tpu_torch.ops.rbf import (
     RBFOperands,
@@ -21,5 +24,6 @@ def build_kernel(name: str):
 
 
 __all__ = ["KERNELS", "RBFOperands", "admm_solve", "admm_solve_reference",
-           "build_kernel", "wcrbf_forward", "wcrbf_forward_reference",
-           "wcrbf_params_to_kernel"]
+           "build_kernel", "intersect_point", "nearest_point",
+           "rotation_matrix", "wcrbf_forward", "wcrbf_forward_reference",
+           "wcrbf_params_to_kernel", "zero_to_2pi"]

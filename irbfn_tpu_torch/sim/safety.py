@@ -1,16 +1,57 @@
-"""Action modes between the planner and the integrator.
+"""Low-level vehicle safety and control between the planner and the
+integrator.
 
-Port of the action modes of ``irbfn_tpu/sim/safety.py``: ``"accl"``
-([accel, steer_vel] passes through) and ``"speed"`` ([speed, steer] through
-the reference gym's PID low-level controller). The iTTC check is still to
-be ported.
+Port of ``irbfn_tpu/sim/safety.py``: the lidar beams' geometry against the
+car body and the instantaneous time-to-collision (iTTC) check, and the
+action modes: ``"accl"`` ([accel, steer_vel] passes through) and
+``"speed"`` ([speed, steer] through the reference gym's PID low-level
+controller). Every per-beam or per-car branch of the reference is a
+branchless tensor expression, batched over leading axes.
 """
 
 from __future__ import annotations
 
 import torch
 
+from irbfn_tpu_torch._device import resolve_device
 from irbfn_tpu_torch.dynamics.params import VehicleParams
+
+
+def beam_geometry(n_beams: int = 64, fov: float = 4.7, width: float = 0.31,
+                  lf: float = 0.15875, lr: float = 0.17145,
+                  dtype=torch.float32, device=None):
+    """Per-beam scan angles, cosines and car-edge offsets, each (n_beams,),
+    on ``device`` (None: the card).
+
+    The offset of beam i is the distance from the lidar (at the CoG) to the
+    car body's edge along the beam: the reference's four-quadrant branch
+    reduces to ``min(half_width / |sin a|, half_length / |cos a|)``, a
+    rectangle's support function."""
+    device = resolve_device(device)
+    angles = (-fov / 2.0 + torch.arange(n_beams, dtype=dtype, device=device)
+              * (fov / (n_beams - 1)))
+    cosines = torch.cos(angles)
+    to_side = (width / 2.0) / torch.clamp(torch.sin(angles).abs(), min=1e-12)
+    to_fr = ((lf + lr) / 2.0) / torch.clamp(cosines.abs(), min=1e-12)
+    return angles, cosines, torch.minimum(to_side, to_fr)
+
+
+def ttc_in_collision(scan, vel, cosines, side_distances,
+                     ttc_thresh: float = 0.005):
+    """Instantaneous time-to-collision check: per beam, iTTC = (range -
+    car_edge_offset) / (v cos a); the car is "in collision" if any beam's
+    iTTC lies in [0, ttc_thresh). A zero velocity never collides.
+
+    ``scan`` (..., n_beams), ``vel`` (...,); returns (...,) bool."""
+    scan = torch.as_tensor(scan)
+    vel = torch.as_tensor(vel, dtype=scan.dtype, device=scan.device)[..., None]
+    proj_vel = vel * cosines
+    still = proj_vel == 0.0
+    safe = torch.where(still, torch.ones_like(proj_vel), proj_vel)
+    ttc = torch.where(still, torch.full_like(proj_vel, float("inf")),
+                      (scan - side_distances) / safe)
+    hit = (ttc >= 0.0) & (ttc < ttc_thresh) & (vel != 0.0)
+    return torch.any(hit, dim=-1)
 
 
 def pid_lowlevel(speed, steer, current_speed, current_steer,

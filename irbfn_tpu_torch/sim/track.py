@@ -119,6 +119,14 @@ def oval_track(length: float = 30.0, width: float = 15.0,
     return from_control_points(pts, n_samples, speed, device=device)
 
 
+def centerline_from_arrays(xs, ys, speed=4.0, dtype=torch.float32,
+                           device=None) -> Track:
+    """Build a Track from raw centerline arrays (f1tenth-map style input)."""
+    pts = np.stack([np.asarray(xs), np.asarray(ys)], axis=-1)
+    return from_control_points(pts, n_samples=max(1024, 4 * len(pts)),
+                               speed=speed, dtype=dtype, device=device)
+
+
 def from_csv(path: str, x_col: int = 0, y_col: int = 1,
              speed_col: int | None = None, delimiter: str = ",",
              skip_header: int = 0, dtype=torch.float32,

@@ -1,20 +1,20 @@
 """Model config and weights, as plain JSON and numpy files.
 
 Port of ``irbfn_tpu/train/checkpoints.py``. The JAX package stores a YAML
-config next to an orbax checkpoint; neither YAML nor orbax is needed here.
+config next to a checkpoint directory; neither format is needed here.
 A run is a pair of files:
 
 - ``<run>.json``: the config dict the YAML holds (``save_config``), the
   basis function by its registry name;
-- a params npz: the flax variables tree flattened to
+- a params npz: the JAX variables tree flattened to
   ``"params/core/centers"``-style keys (frozen centers and widths under
   ``"constants/core/..."``). ``save_checkpoint(dir, model, step)`` writes it
   as ``<dir>/step_<n>.npz``; ``scripts/export_torch_ckpt.py`` writes the
-  same layout from a committed orbax checkpoint, where JAX is installed.
+  same layout from a committed JAX checkpoint, where JAX is installed.
 
 ``load_model`` takes the config and either one npz or a checkpoint
 directory (its newest step). ``params_from_jax`` and ``params_to_jax`` map
-between the flax tree and the port's ``state_dict`` for all four model
+between the JAX tree and the port's ``state_dict`` for all four model
 classes, so a net made by either package loads into the other.
 """
 
@@ -61,8 +61,18 @@ def save_config(path: str, config: dict):
 
 
 def load_config(path: str) -> dict:
+    """A run's config: JSON, or YAML (``.yaml``/``.yml``) where PyYAML is
+    importable."""
     with open(path) as f:
-        return json.load(f)
+        if os.path.splitext(path)[1] not in (".yaml", ".yml"):
+            return json.load(f)
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(f"{path}: a YAML config needs PyYAML; export "
+                              "it to JSON (scripts/export_torch_ckpt.py)"
+                              ) from e
+        return yaml.safe_load(f)
 
 
 def input_bounds_from_config(config: dict) -> np.ndarray:
@@ -101,13 +111,13 @@ def unflatten_tree(flat) -> dict:
     return tree
 
 
-# state_dict name -> path in the flax tree, per model class
+# state_dict name -> path in the JAX tree, per model class
 _CORE = {"centers": ("core", "centers"), "log_sigs": ("core", "log_sigs")}
 
 
 def _dense_paths(*layers) -> dict:
-    """{"<name>_kernel": (flax layer, "kernel"), ...}; a layer is a name
-    shared by both packages or a (port name, flax name) pair."""
+    """{"<name>_kernel": (JAX layer, "kernel"), ...}; a layer is a name
+    shared by both packages or a (port name, JAX name) pair."""
     out = {}
     for layer in layers:
         ours, theirs = (layer, layer) if isinstance(layer, str) else layer
@@ -157,7 +167,7 @@ def _model_class(config: dict) -> str:
 
 
 def params_from_jax(tree: dict, config: dict) -> dict:
-    """The flax variables tree of a model (numpy leaves) -> the port's
+    """The JAX variables tree of a model (numpy leaves) -> the port's
     ``state_dict``, for each of the four model classes. A leaf is read from
     the ``params`` collection, or from ``constants`` where the config froze
     it (``fixed_centers``, ``fixed_width``)."""
@@ -180,7 +190,7 @@ def params_from_jax(tree: dict, config: dict) -> dict:
 
 def params_to_jax(state: dict, config: dict) -> dict:
     """``params_from_jax`` undone: the port's ``state_dict`` (tensors or
-    numpy arrays) -> the flax variables tree with numpy leaves,
+    numpy arrays) -> the JAX variables tree with numpy leaves,
     ``{"params": {...}}`` plus ``{"constants": {"core": {...}}}`` for the
     centers and log-widths the config froze."""
     cls = _model_class(config)
@@ -222,7 +232,7 @@ def checkpoint_steps(ckpt_dir: str) -> list:
 
 def save_checkpoint(ckpt_dir: str, model, step: int, keep: int = 100) -> str:
     """Write the model's weights to ``<ckpt_dir>/step_<step>.npz`` in the
-    flattened flax-key layout ``load_model`` reads, replacing a file of the
+    flattened JAX-key layout ``load_model`` reads, replacing a file of the
     same step (a re-run under one run name must not leave the old weights
     beside a new config), and keep the newest ``keep`` steps."""
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -237,7 +247,7 @@ def save_checkpoint(ckpt_dir: str, model, step: int, keep: int = 100) -> str:
 
 
 def restore_params(ckpt_dir: str, step: Optional[int] = None) -> dict:
-    """The flax variables tree (numpy leaves) of a saved step, the newest
+    """The JAX variables tree (numpy leaves) of a saved step, the newest
     one if ``step`` is None."""
     if step is None:
         steps = checkpoint_steps(ckpt_dir)

@@ -18,14 +18,14 @@ parameters require gradients, so no kernel is launched). ``dyn_params`` is
 the 13-float vehicle vector (``VehicleParams.to_vector()``) or a
 ``VehicleParams``.
 
-The optimizer matches the JAX package's ``optax.chain(clip_by_global_norm,
-adam(schedule))`` step for step: PyTorch's Adam has the same bias
+The optimizer matches the JAX package's chain (clip by global norm, then
+Adam on the schedule) step for step: PyTorch's Adam has the same bias
 correction and the same ``eps = 1e-8`` outside the square root, the
 schedule is read at the count of steps already taken (0 for the first),
-and the clip comes before the step. The clip is optax's rule
+and the clip comes before the step. The clip is the JAX package's rule
 (``clip_by_global_norm_`` below) and not ``clip_grad_norm_``, which divides
 by ``norm + 1e-6``: with it, five clipped f64 steps at lr 1e-2 ended 7e-8
-away from optax's weights.
+away from the JAX package's weights.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ class Trainer:
                                           betas=(0.9, 0.999), eps=1e-8)
         self.scheduler = None
         if decay_steps is not None:
-            # optax.cosine_decay_schedule(lr, decay_steps, alpha=0.1)
+            # the JAX package's cosine decay schedule (alpha=0.1)
             def factor(count, n=int(decay_steps), alpha=0.1):
                 cosine = 0.5 * (1.0 + math.cos(math.pi * min(count, n) / n))
                 return (1.0 - alpha) * cosine + alpha

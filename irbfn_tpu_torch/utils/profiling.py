@@ -20,6 +20,11 @@ share of it; and for the fit-and-train path on that family's table
   device time by kernel;
 - one region's gram pass of ``fit_per_region``: the same, per chunk.
 
+``--parts worlds`` profiles the same way the loops of the map world and
+the bank: the 12-arm grip-adaptive bank, the cartesian planner, and the
+Frenet planner in the oval's rasterized map with scans and iTTC (observe
+then includes the scan).
+
 ``--parts nmpc`` profiles the batched NMPC solver instead (f32, rows drawn
 by seed from the flagship table's ranges), at ``--nmpc_batches`` rows (1,000
 and the table generator's chunk by default): one default solve's seconds,
@@ -63,9 +68,11 @@ def load_lanes() -> dict:
         return {k: z[k] for k in ("loop_mu", "loop_cs", "loop_noise")}
 
 
-def sweep_env(device, control_mode, lanes):
+def sweep_env(device, control_mode, lanes, speed_scale=1.0, **env_kw):
     """The eval sweep on the oval track: per-lane (mu, cs) vehicles, start
-    noise 0.01 * ``loop_noise``, a 2 m corridor. Returns (env, sim0)."""
+    noise 0.01 * ``loop_noise``, a 2 m corridor (``env_kw`` override the
+    env's arguments; ``speed_scale`` scales the raceline's speed, as the
+    eval script's flag does). Returns (env, sim0)."""
     mu = torch.as_tensor(lanes["loop_mu"], device=device)
     cs = torch.as_tensor(lanes["loop_cs"], device=device)
     B = mu.numel()
@@ -76,7 +83,11 @@ def sweep_env(device, control_mode, lanes):
     params = VehicleParams(mu=mu, C_Sf=cs, C_Sr=cs,
                            dt=torch.full((B,), 0.01, device=device), **lane)
     track = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device=device)
-    env = TrackEnv(track, params, half_width=2.0, control_mode=control_mode)
+    if speed_scale != 1.0:
+        rl = track.raceline
+        track = track._replace(raceline=rl._replace(vxs=rl.vxs * speed_scale))
+    env = TrackEnv(track, params, control_mode=control_mode,
+                   **{"half_width": 2.0, **env_kw})
     sim = env.reset(s0=0.0, speed0=1.0, batch_shape=(B,), noise_scale=0.01,
                     noise=torch.as_tensor(lanes["loop_noise"],
                                           device=device))
@@ -110,6 +121,68 @@ def policies(device):
                                                              goal_net)))}
 
 
+BANK_MUS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0, 1.1, 1.2)
+
+
+def world_loops(device, lanes):
+    """{name: (env, sim0, policy)} of the loops of the map world and the
+    bank: the 12-arm grip-adaptive bank (``--pace_lo 0.2``, raceline speed
+    x2.5), the cartesian planner (``cart_c1_pr``), and the flagship in the
+    oval's rasterized map with 64-beam scans, iTTC and a 0.15 m disc. A
+    stateful policy carries its state in a closure."""
+    from irbfn_tpu_torch.planning import (GripAdaptiveFrenetPlanner,
+                                          IRBFNPlanner)
+    from irbfn_tpu_torch.sim import ScanSpec, rasterize_track
+
+    def asset(run):
+        net, conf = load_model(os.path.join(ASSETS, f"{run}.json"),
+                               os.path.join(ASSETS, f"{run}.npz"),
+                               device=device)
+        return net.eval(), conf
+
+    arms = [asset(f"bank6_pr_mu{m:.2f}") for m in BANK_MUS]
+    env_b, sim_b = sweep_env(device, "accl", lanes, speed_scale=2.5)
+    bank = GripAdaptiveFrenetPlanner(
+        arms[0][0], [a[0] for a in arms], BANK_MUS, env_b.track,
+        input_bounds=input_bounds_from_config(arms[0][1]), pace_lo=0.2)
+    state = [bank.init_state((sim_b.s.numel(),))]
+    step = bank.policy()
+
+    def bank_policy(obs):
+        action, state[0] = step(state[0], obs)
+        return action
+
+    cart, conf = asset("cart_c1_pr")
+    env_c, sim_c = sweep_env(device, "accl", lanes)
+    cp = IRBFNPlanner(cart, env_c.track, mirror=bool(conf.get("mirror", True)),
+                      sv_ind=int(conf["out_features"]) // 2,
+                      input_bounds=input_bounds_from_config(conf))
+
+    def cart_policy(obs):
+        r = cp.plan_batch(obs.pose_x, obs.pose_y, obs.pose_theta, obs.delta,
+                          obs.linear_vel_x, obs.beta, obs.ang_vel_z)
+        return torch.stack([r.accel, r.steer_vel], dim=-1)
+
+    flagship, conf = asset("frenet_wide_pr1")
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device=device)
+    env_m, sim_m = sweep_env(device, "accl", lanes, half_width=None,
+                             occ_map=rasterize_track(track, half_width=2.0),
+                             car_radius=0.15, scan_spec=ScanSpec(),
+                             enable_ttc=True)
+    fp = IRBFNFrenetPlanner(flagship, env_m.track,
+                            input_bounds=input_bounds_from_config(conf))
+
+    def map_policy(obs):
+        r = fp.plan_batch(obs.s, obs.ey, obs.epsi, obs.delta,
+                          obs.linear_vel_x, obs.linear_vel_y, obs.ang_vel_z)
+        return torch.stack([r.accel, r.steer_vel], dim=-1)
+
+    return {"grip-adaptive bank (12 arms)": (env_b, sim_b, bank_policy),
+            "cartesian": (env_c, sim_c, cart_policy),
+            "Frenet in the map world (scans, iTTC)": (env_m, sim_m,
+                                                      map_policy)}
+
+
 def _kernels(prof) -> list:
     """The profile's device-side rows (kernels and device copies). The
     host-side operator rows carry their kernels' device time a second time:
@@ -133,7 +206,7 @@ def profile_loop(env, sim, policy, steps, warmup):
         action = policy(obs)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        sim = env.step(sim, action)
+        sim = env.step(sim, action, obs.scan)
         torch.cuda.synchronize()
         if i >= warmup:
             split["observe"].append(t1 - t0)
@@ -143,7 +216,8 @@ def profile_loop(env, sim, policy, steps, warmup):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            sim = env.step(sim, policy(env.observe(sim)))
+            obs = env.observe(sim)
+            sim = env.step(sim, policy(obs), obs.scan)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     launches = sum(e.count for e in prof.key_averages()
@@ -315,14 +389,17 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--parts", type=str, default="loops,fit",
-                   help="what to profile: the closed loops, the lattice "
-                        "family with the fit and train step on its table")
+                   help="what to profile: the closed loops, the loops of "
+                        "the map world and the bank (worlds), the lattice "
+                        "family with the fit and train step on its table, "
+                        "the NMPC solver")
     p.add_argument("--nmpc_batches", type=str, default="1000,65536",
                    help="rows per solve for --parts nmpc")
     args = p.parse_args(argv)
     parts = set(args.parts.split(","))
-    if not parts <= {"loops", "fit", "nmpc"}:
-        p.error(f"--parts takes loops, fit and nmpc, not {args.parts!r}")
+    if not parts <= {"loops", "worlds", "fit", "nmpc"}:
+        p.error("--parts takes loops, worlds, fit and nmpc, not "
+                f"{args.parts!r}")
     device = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
@@ -348,9 +425,13 @@ def main(argv=None):
               f"search {r['t_ls']:.1f} ms; device time by kernel: {r['top']}",
               flush=True)
     lanes = load_lanes()
-    for name, (mode, policy) in (policies(device).items()
-                                 if "loops" in parts else ()):
-        env, sim = sweep_env(device, mode, lanes)
+    loops = {}
+    if "loops" in parts:
+        loops.update({name: sweep_env(device, mode, lanes) + (policy,)
+                      for name, (mode, policy) in policies(device).items()})
+    if "worlds" in parts:
+        loops.update(world_loops(device, lanes))
+    for name, (env, sim, policy) in loops.items():
         split, wall, dev, idle, launches = profile_loop(
             env, sim, policy, args.steps, args.warmup)
         print(f"{name} loop, 1000 lanes: synchronised ms per step "

@@ -65,11 +65,42 @@ the npz layout). Writes to ``irbfn_tpu_torch/assets/``:
       (``loop_action``) and its feasibility flags;
     * ``meta_*``: the seeds and the versions of jax, jaxlib and numpy.
 
+- with ``--bank_golden`` (reads the 12 ``bank6_pr_mu*`` runs),
+  ``bank6_golden.npz``: the grip-adaptive bank (``GripAdaptiveFrenetPlanner``
+  over the 12 arms sorted by mu, ``--pace_lo 0.2 --speed_scale 2.5``, the
+  other flags at the eval script's defaults) on the sweep above, through
+  ``rollout_stateful``, in f32: per-lane laps, done, final progress, mean
+  |ey| and final grip estimate ``g``, and ``loop_arm`` (steps, lanes): the
+  arm each lane drove with at each step.
+- for ``cart_c1_pr`` with ``--golden``, ``cart_c1_pr_golden.npz``:
+  ``plan_pose`` (x, y, theta, delta, v, beta, angv: 1024 seeded poses near
+  the oval's raceline, some with theta a lap or two off) and ``plan_*``:
+  the JAX ``IRBFNPlanner.plan_batch`` outputs (setpoint mode, the config's
+  mirror and sv_ind) in f64; and ``loop_*``: that planner on the sweep
+  above, in f32.
+- with ``--map_golden`` (reads ``frenet_wide_pr1``), ``map_golden.npz``:
+  the oval rasterized at half width 2.0 (``rasterize_track``),
+  ``ray_pose`` (1024 seeded poses inside the corridor) and ``ray_f32`` /
+  ``ray_f64``: ``trace_rays`` at the default 64-beam ``ScanSpec`` in each
+  precision; ``loop_*``: the flagship on the sweep above in that map world
+  (``occ_map``, ``scan_spec``, ``enable_ttc``, ``car_radius`` 0.15, no
+  corridor), in f32; and ``osch_*``: the eval script's 3 x 3 flags (27
+  lanes, no start noise, one attempt) on the Oschersleben line
+  (``data/Oschersleben_raceline_feasible.csv``) in a map rasterized at
+  half width ``osch_half_width``, for the flagship (``osch_irbfn_*``) and
+  the goal-MPC solver (``osch_goal_mpc_*``): per-lane results, and per step
+  the lanes' |ey|, actions and the lookahead's raceline index.
+
 Usage (from the repo root):
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --nmpc_golden   # ~6 min
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run frenet_wide_pr1 --golden
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run goal_mpc_pr --golden
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run frenet_wide_pr1 --train_golden
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run cart_c1_pr --golden
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --bank_golden   # writes the 12 arms too
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --map_golden
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --bank_golden --nudge 1e-6  # JAX vs itself
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --cheap_pass_check  # ~5 min
 """
 
 import argparse
@@ -439,7 +470,373 @@ def nmpc_golden() -> dict:
     return out
 
 
+# the grip-adaptive bank: the 12 arms of docs/ARTIFACTS.md's 92.0/100 run,
+# on the sweep with the raceline's speed scaled (the eval script's
+# --speed_scale): at the oval's 3 m/s the observer's speed gate
+# (GripConfig.v_min = 3.5 m/s) never opens, every lane keeps g = g0 and
+# drives one arm; at 7.5 m/s every arm is driven
+BANK_MUS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0, 1.1, 1.2)
+BANK_FLAGS = dict(g0=0.5, pace_lo=0.2, pace_hi=1.0, pace_margin=1.0,
+                  speed_scale=2.5)
+
+
+def bank_runs():
+    return [f"bank6_pr_mu{m:.2f}" for m in BANK_MUS]
+
+
+def export_run(run, out_dir):
+    """``<run>.npz`` (flattened flax tree) and ``<run>.json`` (the config);
+    returns ``(model, variables, config)``."""
+    model, variables, config = load_model(f"configs/{run}.yaml",
+                                          f"ckpts/{run}")
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, f"{run}.npz"), **flatten_tree(variables))
+    with open(os.path.join(out_dir, f"{run}.json"), "w") as f:
+        json.dump(config, f, indent=1, sort_keys=True)
+    print(f"wrote {run}.npz and {run}.json to {out_dir}", flush=True)
+    return model, variables, config
+
+
+def _f32(variables):
+    return jax.tree.map(lambda a: jnp.asarray(a, jnp.float32),
+                        {"params": variables["params"]})
+
+
+def bank_golden(out_dir, nudge=0.0):
+    """The 12-arm grip-adaptive bank on the sweep, through
+    ``rollout_stateful``, in f32, with every step's arm per lane. ``nudge``
+    scales the start states by (1 + nudge) (and writes no arm): the JAX
+    package's own sensitivity to f32-sized differences."""
+    from irbfn_tpu.planning import GripAdaptiveFrenetPlanner
+    from irbfn_tpu.planning.grip import GripConfig
+
+    if nudge:
+        loaded = [load_model(f"configs/{r}.yaml", f"ckpts/{r}")
+                  for r in bank_runs()]
+    else:
+        loaded = [export_run(r, out_dir) for r in bank_runs()]
+    model0, _, conf0 = loaded[0]
+    jax.config.update("jax_enable_x64", False)
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
+    rl = track.raceline
+    track = track._replace(raceline=rl._replace(
+        vxs=rl.vxs * BANK_FLAGS["speed_scale"]))
+    env, sim0, noise, mu, cs = sweep_env(track, "accl")
+    sim0 = sim0._replace(x=sim0.x * (1.0 + nudge))
+    planner = GripAdaptiveFrenetPlanner(
+        model0, [_f32(v) for _, v, _ in loaded], BANK_MUS, track,
+        input_bounds=input_bounds_from_config(conf0),
+        grip_cfg=GripConfig(g0=BANK_FLAGS["g0"]),
+        pace_lo=BANK_FLAGS["pace_lo"], pace_hi=BANK_FLAGS["pace_hi"],
+        pace_margin=BANK_FLAGS["pace_margin"])
+    policy = planner.policy()
+    n, B = LOOP["n_steps"], mu.size
+
+    def logged(carry, obs):
+        gs, t, g_log = carry
+        action, gs = policy(gs, obs)
+        return action, (gs, t + 1, g_log.at[t].set(gs.g))
+
+    t0 = time.perf_counter()
+    carry = (planner.init_state((B,)), jnp.int32(0),
+             jnp.zeros((n, B), jnp.float32))
+    final, (gs, _, g_log), traj = env.rollout_stateful(sim0, logged, carry,
+                                                       n)
+    ey_mean, _ = deviation_metrics(traj)
+    mus = np.asarray(BANK_MUS, np.float32)
+    g_log = np.asarray(g_log)
+    # the planner's arm rule on the g it chose with, in the same f32 ops
+    arm = np.argmin(np.abs(mus - np.clip(g_log, mus[0], mus[-1])[..., None]),
+                    axis=-1).astype(np.int8)
+    out = dict(loop_laps=np.asarray(final.laps),
+               loop_done=np.asarray(final.done), loop_s=np.asarray(final.s),
+               loop_ey_mean=np.asarray(ey_mean), loop_g=np.asarray(gs.g),
+               loop_arm=arm, loop_noise=noise,
+               loop_mu=mu.astype(np.float32), loop_cs=cs.astype(np.float32),
+               arm_mus=mus, **{f"flag_{k}": v for k, v in BANK_FLAGS.items()})
+    jax.config.update("jax_enable_x64", True)
+    print(f"grip-adaptive bank: {B} lanes x {n} steps in "
+          f"{time.perf_counter() - t0:.1f} s (JAX, CPU); completed "
+          f"{int((~out['loop_done']).sum())}/{B}, mean|ey| "
+          f"{float(out['loop_ey_mean'].mean()):.4f}, final g median "
+          f"{float(np.median(out['loop_g'])):.3f}, arms used "
+          f"{np.bincount(arm.reshape(-1), minlength=len(mus)).tolist()}",
+          flush=True)
+    return out
+
+
+def cart_golden(model, variables, config):
+    """IRBFNPlanner (setpoint mode) on seeded poses in f64, and on the
+    sweep in f32."""
+    from irbfn_tpu.planning import IRBFNPlanner
+
+    bounds = input_bounds_from_config(config)
+    kw = dict(mirror=bool(config.get("mirror", True)),
+              sv_ind=int(config["out_features"]) // 2, input_bounds=bounds,
+              use_pallas=False)
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
+    rng = np.random.default_rng(0)
+    n = N_GOLDEN
+    s = rng.uniform(0.0, float(track.raceline.length), n)
+    x, y, th = track.frenet_to_cartesian(
+        jnp.asarray(s), jnp.asarray(rng.uniform(-1.0, 1.0, n)),
+        jnp.asarray(rng.uniform(-0.6, 0.6, n)))
+    laps = rng.integers(-1, 3, n) * 2.0 * np.pi  # theta accumulated over laps
+    pose = np.stack([np.asarray(x), np.asarray(y), np.asarray(th) + laps,
+                     rng.uniform(-0.3, 0.3, n), rng.uniform(0.5, 7.0, n),
+                     rng.uniform(-0.15, 0.15, n), rng.uniform(-1.5, 1.5, n)],
+                    axis=-1)
+    params64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                            {"params": variables["params"]})
+    res = IRBFNPlanner(model, params64, track, dtype=jnp.float64,
+                       **kw).plan_batch(*pose.T)
+    out = {"plan_pose": pose}
+    out.update({f"plan_{k}": np.asarray(v) for k, v in res._asdict().items()})
+
+    jax.config.update("jax_enable_x64", False)
+    env, sim0, noise, mu, cs = sweep_env(track, "accl")
+    planner = IRBFNPlanner(model, _f32(variables), track, **kw)
+
+    def policy(obs):
+        r = planner.plan_batch(obs.pose_x, obs.pose_y, obs.pose_theta,
+                               obs.delta, obs.linear_vel_x, obs.beta,
+                               obs.ang_vel_z)
+        return jnp.stack([r.accel, r.steer_vel], axis=-1)
+
+    loop = run_sweep(env, sim0, policy)
+    jax.config.update("jax_enable_x64", True)
+    out.update(loop_noise=noise, loop_mu=mu.astype(np.float32),
+               loop_cs=cs.astype(np.float32),
+               **{f"loop_{k}": v for k, v in loop.items()})
+    return out
+
+
+def lookahead_rows(points, x, y, v, horizon_time=0.5, min_lookahead=0.1):
+    """(nearest, goal) raceline rows of ``_lookahead_goal`` per pose, in
+    numpy f32: the rows whose yaw and speed the goal-MPC planner reads."""
+    d2 = ((np.stack([x, y], -1)[:, None] - points) ** 2).sum(-1)
+    near = d2.argmin(-1)
+    seg = np.linalg.norm(points[1] - points[0])
+    la_d = np.maximum(np.maximum(v, 0.1) * horizon_time, min_lookahead)
+    goal = (near + np.ceil(la_d / seg).astype(np.int64)) % len(points)
+    return np.stack([near, goal], -1)
+
+
+OSCH_CSV = "data/Oschersleben_raceline_feasible.csv"
+OSCH_HALF_WIDTH = 1.0  # the map rasterized around the line: a 2 m corridor
+OSCH = dict(num_mu=3, mu_min=0.7, mu_max=1.1, num_cs=3, cs_min=3.0,
+            cs_max=7.0, num_trials=3, n_steps=600, car_radius=0.15)
+
+
+def write_bundle(omap, bundle, name):
+    """A reference-format track directory from a rasterized map: the map
+    yaml+png (free = positive distance) and the line CSV beside it."""
+    import shutil
+
+    from irbfn_tpu.sim.map import save_map_yaml
+
+    os.makedirs(bundle, exist_ok=True)
+    origin = (float(omap.origin_x), float(omap.origin_y), 0.0)
+    save_map_yaml(np.asarray(omap.dist) > 0, float(omap.resolution), origin,
+                  os.path.join(bundle, f"{name}_map.yaml"))
+    shutil.copy(OSCH_CSV, os.path.join(bundle, f"{name}_raceline.csv"))
+
+
+def osch_loops(model, variables, config, bundle):
+    """The eval script's flagship and goal-MPC sweeps on the Oschersleben
+    line in the bundle's map world, no start noise, one attempt, f32."""
+    from irbfn_tpu.sim.map import load_track_bundle, raceline_from_csv
+    from irbfn_tpu.sim.track import Track
+
+    _, omap = load_track_bundle(bundle)
+    track = Track(raceline_from_csv(OSCH_CSV))
+    rl = track.raceline
+    mus = np.linspace(OSCH["mu_min"], OSCH["mu_max"], OSCH["num_mu"])
+    css = np.linspace(OSCH["cs_min"], OSCH["cs_max"], OSCH["num_cs"])
+    mu_g, cs_g = np.meshgrid(mus, css, indexing="ij")
+    mu = np.repeat(mu_g.reshape(-1), OSCH["num_trials"])
+    cs = np.repeat(cs_g.reshape(-1), OSCH["num_trials"])
+    B = mu.size
+    base = f1tenth_params()
+    full = lambda v: jnp.full((B,), v, jnp.float32)  # noqa: E731
+    params_b = VehicleParams(
+        mu=jnp.asarray(mu, jnp.float32), m=full(base.m), I=full(base.I),
+        lf=full(base.lf), lr=full(base.lr), C_Sf=jnp.asarray(cs, jnp.float32),
+        C_Sr=jnp.asarray(cs, jnp.float32), h=full(base.h), dt=full(0.01),
+        sv_max=full(base.sv_max), a_max=full(base.a_max),
+        s_max=full(base.s_max), v_max=full(base.v_max))
+    flagship = IRBFNFrenetPlanner(model, _f32(variables), track,
+                                  use_pallas=False,
+                                  input_bounds=input_bounds_from_config(config))
+    goal = GoalMPCPlanner(track)
+    out = {}
+    for name, mode in (("irbfn", "accl"), ("goal_mpc", "speed")):
+        env = TrackEnv(track, params_b, half_width=None, occ_map=omap,
+                       car_radius=OSCH["car_radius"], control_mode=mode)
+        sim = env.reset(s0=jnp.zeros(B), speed0=1.0, batch_shape=(B,))
+        eys, acts, idx = [], [], []
+        t0 = time.perf_counter()
+        for _ in range(OSCH["n_steps"]):
+            obs = env.observe(sim)
+            if name == "irbfn":
+                r = flagship.plan_batch(obs.s, obs.ey, obs.epsi, obs.delta,
+                                        obs.linear_vel_x, obs.linear_vel_y,
+                                        obs.ang_vel_z)
+                action = jnp.stack([r.accel, r.steer_vel], axis=-1)
+            else:
+                action = jnp.stack(goal.plan_batch(
+                    obs.pose_x, obs.pose_y, obs.pose_theta,
+                    obs.linear_vel_x), axis=-1)
+            eys.append(np.asarray(obs.ey))
+            acts.append(np.asarray(action))
+            idx.append(lookahead_rows(np.asarray(rl.points),
+                                      np.asarray(obs.pose_x),
+                                      np.asarray(obs.pose_y),
+                                      np.asarray(obs.linear_vel_x)))
+            sim = env.step(sim, action)
+        ey = np.abs(np.stack(eys))
+        out.update({f"osch_{name}_laps": np.asarray(sim.laps),
+                    f"osch_{name}_done": np.asarray(sim.done),
+                    f"osch_{name}_s": np.asarray(sim.s),
+                    f"osch_{name}_abs_ey": ey.astype(np.float32),
+                    f"osch_{name}_action": np.stack(acts).astype(np.float32),
+                    f"osch_{name}_rows": np.stack(idx).astype(np.int16)})
+        print(f"Oschersleben {name}: {B} lanes x {OSCH['n_steps']} steps in "
+              f"{time.perf_counter() - t0:.1f} s (JAX, CPU); completed "
+              f"{int((~np.asarray(sim.done)).sum())}/{B}, laps "
+              f"{np.asarray(sim.laps).tolist()}", flush=True)
+    out.update(osch_mu=mu.astype(np.float32), osch_cs=cs.astype(np.float32),
+               osch_half_width=OSCH_HALF_WIDTH,
+               **{f"osch_flag_{k}": v for k, v in OSCH.items()})
+    return out
+
+
+# the reference-parity Frenet lattice (docs/ARTIFACTS.md: 8x5x9x7x5x7x9x3
+# over the generator's default ranges) and the tiered generator's cheap pass
+PARITY_GRID = (("ey", -0.2, 2.0, 8), ("delta", -0.3, 0.3, 5),
+               ("vx_car", 1.0, 7.0, 9), ("vy_car", -1.0, 1.0, 7),
+               ("vx_goal", 3.0, 7.0, 5), ("wz", -2.6, 2.6, 7),
+               ("epsi", -1.0, 1.0, 9), ("curv", -0.1, 0.1, 3))
+CHEAP_ITERS = 12
+CHEAP_ROWS = 8 * NMPC_CHUNK  # seeded lattice rows, in 39-row solves
+
+
+def cheap_pass_check():
+    """The tiered table generator's cheap pass (Newton iterations capped at
+    12) on seeded rows of the reference-parity lattice, in f32 and in f64,
+    through the JAX package and the port on the CPU: certificate flags row
+    by row, and the KKT residuals of the rows whose flags differ."""
+    import torch
+
+    from irbfn_tpu.dynamics.params import fullscale_params
+    from irbfn_tpu.solvers.nmpc import NMPCConfig, solve_lattice_point
+    from irbfn_tpu_torch.dynamics import fullscale_params as t_fullscale
+    from irbfn_tpu_torch.solvers import nmpc as tnmpc
+
+    lattice = build_lattice(tuple(GridSpec(*g) for g in PARITY_GRID),
+                            dtype=np.float32)
+    rng = np.random.default_rng(0)
+    rows = lattice[np.sort(rng.choice(len(lattice), CHEAP_ROWS,
+                                      replace=False))]
+    chunks = range(0, CHEAP_ROWS, NMPC_CHUNK)
+    cfg_j, cfg_t = (NMPCConfig(gn_iters=CHEAP_ITERS),
+                    tnmpc.NMPCConfig(gn_iters=CHEAP_ITERS))
+    for name, x64, jdt, tdt in (("f32", False, jnp.float32, torch.float32),
+                                ("f64", True, jnp.float64, torch.float64)):
+        t0 = time.perf_counter()
+        with jax.enable_x64(x64):
+            params = fullscale_params(dtype=jdt)
+            sols = [solve_lattice_point(jnp.asarray(rows[i:i + NMPC_CHUNK],
+                                                    jdt), params, cfg_j)
+                    for i in chunks]
+            flags_j = np.concatenate([np.asarray(s.feasible) for s in sols])
+            kkt_j = np.concatenate([np.asarray(s.kkt_residual)
+                                    for s in sols])
+        t_j = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tparams = t_fullscale(dtype=tdt, device="cpu")
+        sols = [tnmpc.solve_lattice_point(
+            torch.as_tensor(rows[i:i + NMPC_CHUNK], dtype=tdt), tparams,
+            cfg_t, device="cpu") for i in chunks]
+        flags_t = np.concatenate([s.feasible.numpy() for s in sols])
+        kkt_t = np.concatenate([s.kkt_residual.numpy() for s in sols])
+        t_t = time.perf_counter() - t0
+        diff = np.flatnonzero(flags_j != flags_t)
+        print(f"cheap pass ({CHEAP_ITERS}-iteration cap, {name}) on "
+              f"{CHEAP_ROWS} seeded rows of the {len(lattice):,}-row "
+              f"reference-parity lattice: JAX certifies {flags_j.mean():.4f}"
+              f" ({t_j:.0f} s), the port {flags_t.mean():.4f} ({t_t:.0f} s);"
+              f" flags differ on {diff.size} rows (JAX only "
+              f"{int((flags_j & ~flags_t).sum())}, port only "
+              f"{int((flags_t & ~flags_j).sum())}); their KKT residuals "
+              f"(tolerance {cfg_t.kkt_tol}) JAX / port: "
+              + ", ".join(f"{kkt_j[i]:.3g}/{kkt_t[i]:.3g}" for i in diff)
+              + f"; KKT residual |JAX - port| median "
+              f"{np.median(np.abs(kkt_j - kkt_t)):.2e}", flush=True)
+
+
+N_RAYS = 1024
+
+
+def map_golden(out_dir):
+    """trace_rays on seeded poses, the flagship in the oval's map world,
+    and the Oschersleben sweeps (see the module docstring)."""
+    import tempfile
+
+    from irbfn_tpu.sim.map import ScanSpec, rasterize_track, trace_rays
+    from irbfn_tpu.sim.map import raceline_from_csv
+    from irbfn_tpu.sim.track import Track
+
+    model, variables, config = load_model("configs/frenet_wide_pr1.yaml",
+                                          "ckpts/frenet_wide_pr1")
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
+    omap = rasterize_track(track, half_width=LOOP["half_width"])
+    rng = np.random.default_rng(0)
+    s = rng.uniform(0.0, float(track.raceline.length), N_RAYS)
+    x, y, th = track.frenet_to_cartesian(
+        jnp.asarray(s), jnp.asarray(rng.uniform(-1.8, 1.8, N_RAYS)),
+        jnp.asarray(rng.uniform(-np.pi, np.pi, N_RAYS)))
+    pose = np.stack([np.asarray(x), np.asarray(y), np.asarray(th)],
+                    -1).astype(np.float32)
+    out = {"ray_pose": pose}
+    for suffix, dt in (("f32", jnp.float32), ("f64", jnp.float64)):
+        om = omap._replace(**{k: jnp.asarray(getattr(omap, k), dt)
+                              for k in omap._fields})
+        out[f"ray_{suffix}"] = np.asarray(trace_rays(
+            om, *(jnp.asarray(pose[:, i], dt) for i in range(3)),
+            ScanSpec()))
+
+    jax.config.update("jax_enable_x64", False)
+    env, sim0, noise, mu, cs = sweep_env(track, "accl")
+    env = TrackEnv(track, env.params, half_width=None, occ_map=omap,
+                   car_radius=OSCH["car_radius"], scan_spec=ScanSpec(),
+                   enable_ttc=True)
+    planner = IRBFNFrenetPlanner(model, _f32(variables), track,
+                                 use_pallas=False,
+                                 input_bounds=input_bounds_from_config(config))
+
+    def policy(obs):
+        r = planner.plan_batch(obs.s, obs.ey, obs.epsi, obs.delta,
+                               obs.linear_vel_x, obs.linear_vel_y,
+                               obs.ang_vel_z)
+        return jnp.stack([r.accel, r.steer_vel], axis=-1)
+
+    loop = run_sweep(env, sim0, policy)
+    out.update(loop_noise=noise, loop_mu=mu.astype(np.float32),
+               loop_cs=cs.astype(np.float32),
+               **{f"loop_{k}": v for k, v in loop.items()})
+    with tempfile.TemporaryDirectory() as d:
+        osch = Track(raceline_from_csv(OSCH_CSV))
+        write_bundle(rasterize_track(osch, half_width=OSCH_HALF_WIDTH),
+                     os.path.join(d, "osch"), "osch")
+        out.update(osch_loops(model, variables, config,
+                              os.path.join(d, "osch")))
+    jax.config.update("jax_enable_x64", True)
+    return out
+
+
 GOLDENS = {"goal_mpc_pr": (goal_golden, "goal_mpc_golden.npz")}
+GOLDENS["cart_c1_pr"] = (cart_golden, "cart_c1_pr_golden.npz")
 
 
 def main():
@@ -454,22 +851,55 @@ def main():
     ap.add_argument("--nmpc_golden", action="store_true",
                     help="write nmpc_golden.npz (the NMPC solver's f64 "
                          "solutions; reads no checkpoint) and stop")
+    ap.add_argument("--bank_golden", action="store_true",
+                    help="write the 12 bank6_pr_mu* arms and "
+                         "bank6_golden.npz (the grip-adaptive sweep) and "
+                         "stop")
+    ap.add_argument("--map_golden", action="store_true",
+                    help="write map_golden.npz (scans, the flagship in "
+                         "the oval's map world, the Oschersleben sweeps) "
+                         "and stop")
+    ap.add_argument("--cheap_pass_check", action="store_true",
+                    help="compare the tiered generator's cheap-pass "
+                         "certificate flags of the two packages on seeded "
+                         "lattice rows (prints; writes nothing) and stop")
+    ap.add_argument("--nudge", type=float, default=0.0,
+                    help="with --bank_golden: scale the start states by "
+                         "(1 + nudge) and compare with the committed golden "
+                         "instead of writing one")
     ap.add_argument("--out_dir", default=ASSETS)
     args = ap.parse_args()
-    if args.nmpc_golden:
-        os.makedirs(args.out_dir, exist_ok=True)
-        np.savez_compressed(os.path.join(args.out_dir, "nmpc_golden.npz"),
-                            **nmpc_golden())
-        print("wrote nmpc_golden.npz")
-        return
-    model, variables, config = load_model(f"configs/{args.run}.yaml",
-                                          f"ckpts/{args.run}")
     os.makedirs(args.out_dir, exist_ok=True)
-    np.savez(os.path.join(args.out_dir, f"{args.run}.npz"),
-             **flatten_tree(variables))
-    with open(os.path.join(args.out_dir, f"{args.run}.json"), "w") as f:
-        json.dump(config, f, indent=1, sort_keys=True)
-    print(f"wrote {args.run}.npz and {args.run}.json to {args.out_dir}")
+    if args.cheap_pass_check:
+        cheap_pass_check()
+        return
+    if args.bank_golden and args.nudge:
+        out = bank_golden(args.out_dir, args.nudge)
+        with np.load(os.path.join(args.out_dir, "bank6_golden.npz")) as z:
+            ref = {k: z[k] for k in z.files}
+        same = out["loop_arm"] == ref["loop_arm"]
+        d_ey = 1e3 * np.abs(out["loop_ey_mean"] - ref["loop_ey_mean"])
+        d_g = np.abs(out["loop_g"] - ref["loop_g"])
+        print(f"JAX against its golden, start states x(1 + {args.nudge:g}):"
+              f" arm equal in {same.mean():.4f} of lane-steps "
+              f"({same[:60].mean():.4f} over the first 60), "
+              f"{int((~same.all(0)).sum())} lanes differ somewhere; done "
+              f"differs in {int((out['loop_done'] != ref['loop_done']).sum())}"
+              f" lanes, laps in {int((out['loop_laps'] != ref['loop_laps']).sum())}"
+              f"; per-lane mean |ey| median {np.median(d_ey):.3f} mm, max "
+              f"{d_ey.max():.1f} mm; sweep {1e3 * abs(out['loop_ey_mean'].mean() - ref['loop_ey_mean'].mean()):.3f}"
+              f" mm; final g median {np.median(d_g):.2e}, 90th percentile "
+              f"{np.percentile(d_g, 90):.2e}", flush=True)
+        return
+    for flag, fn, name in (("nmpc_golden", nmpc_golden, "nmpc_golden.npz"),
+                           ("bank_golden", bank_golden, "bank6_golden.npz"),
+                           ("map_golden", map_golden, "map_golden.npz")):
+        if getattr(args, flag):
+            out = fn() if flag == "nmpc_golden" else fn(args.out_dir)
+            np.savez_compressed(os.path.join(args.out_dir, name), **out)
+            print(f"wrote {name}")
+            return
+    model, variables, config = export_run(args.run, args.out_dir)
     if args.golden:
         fn, name = GOLDENS.get(args.run,
                                (frenet_golden, f"{args.run}_golden.npz"))

@@ -1,8 +1,21 @@
-"""The port's closed-loop robustness sweep (``sim/eval_closed_loop.py``) at
-a small size on the CPU: every planner it has runs a 2 x 2 (mu, cs) x 2
-trials sweep to finite results in the reference's result layout, the
-explicit policy mirrors and brakes as ``scripts/eval_closed_loop.py`` does,
-and what is not ported yet raises, naming its ROADMAP item.
+"""The port's closed-loop robustness sweep (``sim/eval_closed_loop.py``) and
+EXP3 bank experiment (``sim/eval_adaptive.py``) at a small size on the CPU:
+every planner runs a 2 x 2 (mu, cs) x 2 trials sweep to finite results in
+the reference's result layout, the explicit policy mirrors and brakes as
+``scripts/eval_closed_loop.py`` does, the parser has every flag of the
+reference script, and misused options fail with a message naming what is
+missing.
+
+End to end against the JAX scripts (``scripts/eval_closed_loop.py``,
+``scripts/eval_adaptive.py``, run in f32 as deployed) on a tiny track
+bundle written in the test (the oval's raceline and its rasterized map):
+the grip-adaptive bank (two ``bank6_pr_mu*`` arms), the cartesian planner
+and the flagship on the bundle's map with ``--line_csv``, 8 lanes, no start
+noise, so both packages start alike. Completion and laps are equal; mean
+|ey|, |epsi| and speed agree to 1e-4 and the grip estimate to 1e-3 (f32
+rounding over 25 steps of feedback: measured up to 1.5e-5 and 1.9e-5). The
+bandit's draws are the port's own (numpy, not a JAX key), so its pulls are
+not compared; the fixed-arm baselines, which draw nothing, are (1e-4).
 """
 
 import pickle
@@ -135,33 +148,200 @@ def test_explicit_policy_mirrors_and_brakes():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--planner", "irbfn_adaptive"], "item 6"),
-    (["--planner", "irbfn_cart"], "item 6"),
-    (["--planner", "pursuit", "--map_dir", "maps/x"], "sim/map.py"),
-    (["--planner", "pursuit", "--line_csv", "line.csv"], "sim/map.py"),
+    (["--planner", "irbfn_adaptive"], "--bank"),
+    (["--planner", "irbfn_cart"], "--config_f"),
+    (["--planner", "pursuit", "--map_dir", "maps/x"], "maps/x"),
+    (["--planner", "pursuit", "--line_csv", "line.csv"], "--map_dir"),
 ])
 def test_unported_options_raise_and_name_the_roadmap(argv, item, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+    """The options the port once refused all run now; misused, each fails
+    with a message naming what is missing."""
+    with pytest.raises((SystemExit, FileNotFoundError)) as e:
         ev.main(SMALL + argv + ["--out_name", str(tmp_path / "res")])
     assert item in str(e.value)
+    assert "ROADMAP" not in str(e.value)
 
 
 def test_flags_match_the_reference_script():
-    """Every flag of the reference script that the port serves, with the
+    """Every flag of the reference script is in the port's parser, with the
     same default."""
     import argparse
     import re
 
     src = open("scripts/eval_closed_loop.py").read()
+    flags = set(re.findall(r'add_argument\("--(\w+)"', src))
+    got = vars(ev.parse_args([]))
+    assert flags <= set(got), flags - set(got)
     want = dict(re.findall(
         r'add_argument\("--(\w+)", type=(?:int|float), default=([-\d.e]+)',
         src))
-    got = vars(ev.parse_args([]))
-    served = {k: float(v) for k, v in want.items() if k in got}
-    assert {"horizon", "ctrl_dt", "speed_scale", "oval_scale", "half_width",
-            "max_retries", "gn_iters", "al_outer"} <= set(served)
-    for k, v in served.items():
-        assert float(got[k]) == v, k
+    for k, v in want.items():
+        assert float(got[k]) == float(v), k
+    assert {"bank", "arm_mus", "g0", "pace_lo", "pace_hi", "pace_margin",
+            "line", "car_radius", "map_dir", "line_csv"} <= set(want) | {
+        "bank", "arm_mus", "line", "map_dir", "line_csv"}
+    assert got["line"] == "raceline" and got["bank"] is None
     assert got["planner"] == "nmpc" and got["n_steps"] == 600
     assert got["num_mu"] == got["num_cs"] == got["num_trials"] == 10
     assert isinstance(ev.parse_args(["--device", "cpu"]), argparse.Namespace)
+
+
+# ------------------------------------------------ against the JAX scripts
+
+A = "irbfn_tpu_torch/assets/"
+TINY = ["--num_mu", "2", "--mu_min", "0.6", "--mu_max", "1.0", "--num_cs",
+        "2", "--cs_min", "3", "--cs_max", "6", "--num_trials", "2",
+        "--n_steps", "25", "--noise_scale", "0", "--max_retries", "0"]
+TOL_LOOP = 1e-4
+TOL_G = 1e-3
+
+
+def _jax_script(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"ref_{name}",
+                                                  f"scripts/{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_jax(name, argv):
+    """A JAX script's main() under ``argv``, in f32 as deployed."""
+    import sys
+    from unittest import mock
+
+    import jax
+
+    mod = _jax_script(name)
+    with jax.enable_x64(False), mock.patch.object(sys, "argv",
+                                                  [name] + argv):
+        mod.main()
+
+
+@pytest.fixture(scope="module")
+def bundle(tmp_path_factory):
+    """A tiny reference-format bundle: the oval's raceline as a CSV and its
+    rasterized corridor (half width 2 m) as yaml + png."""
+    from irbfn_tpu.sim import oval_track as joval
+    from irbfn_tpu.sim.map import rasterize_track, save_map_yaml
+
+    d = tmp_path_factory.mktemp("bundle") / "ovl"
+    d.mkdir()
+    track = joval(30.0, 15.0, n_samples=512, speed=3.0)
+    rl = track.raceline
+    cols = np.stack([np.asarray(a, np.float64) for a in
+                     (rl.ss, rl.xs, rl.ys, rl.yaws, rl.ks, rl.vxs)], -1)
+    np.savetxt(d / "ovl_raceline.csv", cols, delimiter=";", fmt="%.9g",
+               header="s_m; x_m; y_m; psi_rad; kappa_radpm; vx_mps")
+    omap = rasterize_track(track, half_width=2.0)
+    save_map_yaml(np.asarray(omap.dist) > 0, float(omap.resolution),
+                  (float(omap.origin_x), float(omap.origin_y), 0.0),
+                  str(d / "ovl_map.yaml"))
+    return str(d)
+
+
+def _compare(res, ref_pkl):
+    with open(ref_pkl, "rb") as f:
+        ref = pickle.load(f)
+    assert set(res) == set(ref) and res["planner"] == ref["planner"]
+    np.testing.assert_array_equal(res["combos"], ref["combos"])
+    np.testing.assert_array_equal(res["completion"], ref["completion"])
+    np.testing.assert_array_equal(res["laps"], ref["laps"])
+    for k in ("ey", "epsi", "vx_mean"):
+        np.testing.assert_allclose(res[k], ref[k], rtol=0, atol=TOL_LOOP,
+                                   err_msg=k)
+    np.testing.assert_allclose(res["g_est"], ref["g_est"], rtol=0,
+                               atol=TOL_G, equal_nan=True)
+    return ref
+
+
+ARM_MUS = ("0.80", "1.00")
+
+
+@pytest.mark.parametrize("case", ["adaptive_map", "cart", "flagship_line"])
+def test_sweep_matches_the_jax_script(case, bundle, tmp_path):
+    common = TINY + ["--out_name"]
+    if case == "adaptive_map":
+        argv = ["--planner", "irbfn_adaptive", "--arm_mus", "1.0", "0.8",
+                "--pace_lo", "0.2", "--speed_scale", "2.5", "--map_dir",
+                bundle]
+        jbank = [f"configs/bank6_pr_mu{m}.yaml:ckpts/bank6_pr_mu{m}"
+                 for m in ARM_MUS[::-1]]
+        tbank = [f"{A}bank6_pr_mu{m}.json:{A}bank6_pr_mu{m}.npz"
+                 for m in ARM_MUS[::-1]]
+        jargv, targv = argv + ["--bank"] + jbank, argv + ["--bank"] + tbank
+    elif case == "cart":
+        argv = ["--planner", "irbfn_cart"]
+        jargv = argv + ["--config_f", "configs/cart_c1_pr.yaml", "--ckpt",
+                        "ckpts/cart_c1_pr"]
+        targv = argv + ["--config_f", A + "cart_c1_pr.json", "--ckpt",
+                        A + "cart_c1_pr.npz"]
+    else:
+        argv = ["--planner", "irbfn", "--map_dir", bundle, "--line_csv",
+                bundle + "/ovl_raceline.csv", "--car_radius", "0.15"]
+        jargv = argv + ["--config_f", "configs/frenet_wide_pr1.yaml",
+                        "--ckpt", "ckpts/frenet_wide_pr1"]
+        targv = argv + ["--config_f", A + "frenet_wide_pr1.json", "--ckpt",
+                        A + "frenet_wide_pr1.npz"]
+    _run_jax("eval_closed_loop", common + [str(tmp_path / "jax")] + jargv)
+    res = ev.main(["--device", "cpu"] + common + [str(tmp_path / "port")]
+                  + targv)
+    ref = _compare(res, tmp_path / "jax.pkl")
+    assert (ref["completion"] == 1.0).all()
+    if case == "adaptive_map":
+        assert np.isfinite(res["g_est"]).all()
+        assert (res["g_est"] != 0.5).any()  # the observer moved
+    else:
+        assert np.isnan(res["g_est"]).all()
+
+
+def _adaptive_tables(tmp_path):
+    """Two feedback tables (one per arm) whose laws differ in gain."""
+    paths = []
+    for i, gain in enumerate((1.0, 0.6)):
+        rows, sol = _feedback_table(str(tmp_path / f"t{i}.npz"))
+        d = dict(np.load(tmp_path / f"t{i}.npz"))
+        d["outputs"] = (d["outputs"] * gain).astype(np.float32)
+        np.savez(tmp_path / f"t{i}.npz", **d)
+        paths.append(str(tmp_path / f"t{i}.npz"))
+    return paths
+
+
+@pytest.mark.parametrize("mode", ["tables", "nets"])
+def test_eval_adaptive_matches_the_jax_script(mode, bundle, tmp_path):
+    from irbfn_tpu_torch.sim import eval_adaptive
+
+    common = ["--arm_mus", "0.8", "1.0", "--map_dir", bundle, "--mus",
+              "0.6", "1.0", "--css", "5.0", "--episodes", "2", "--n_steps",
+              "20", "--baseline_rounds", "1", "--noise_scale", "0",
+              "--json_out"]
+    if mode == "tables":
+        arms = _adaptive_tables(tmp_path)
+        jarms = tarms = ["--tables"] + arms
+    else:
+        jarms = ["--nets"] + [f"configs/bank6_pr_mu{m}.yaml:"
+                              f"ckpts/bank6_pr_mu{m}" for m in ARM_MUS]
+        tarms = ["--nets"] + [f"{A}bank6_pr_mu{m}.json:{A}bank6_pr_mu{m}.npz"
+                              for m in ARM_MUS]
+    import json
+
+    _run_jax("eval_adaptive", common + [str(tmp_path / "j.json")] + jarms)
+    res = eval_adaptive.main(["--device", "cpu"] + common
+                             + [str(tmp_path / "t.json")] + tarms)
+    with open(tmp_path / "j.json") as f:
+        ref = json.load(f)
+    with open(tmp_path / "t.json") as f:
+        assert json.load(f) == json.loads(json.dumps(res))
+    assert set(res) == set(ref) and res["mode"] == ref["mode"]
+    np.testing.assert_allclose(res["speed_scales"], ref["speed_scales"],
+                               rtol=1e-12)
+    np.testing.assert_allclose(res["fixed_rewards"], ref["fixed_rewards"],
+                               rtol=0, atol=TOL_LOOP)
+    pulls, rewards = np.asarray(res["pulls"]), np.asarray(res["rewards"])
+    assert pulls.shape == (2, 2) and ((pulls >= 0) & (pulls < 2)).all()
+    assert ((rewards >= 0) & (rewards <= 1)).all()
+    # a pulled arm's reward is that arm's fixed baseline (no start noise)
+    fixed = np.asarray(res["fixed_rewards"])
+    np.testing.assert_allclose(rewards, fixed[pulls, np.arange(2)],
+                               rtol=0, atol=1e-6)

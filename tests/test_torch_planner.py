@@ -469,3 +469,137 @@ def test_torch_explicit_planner_closed_loop_matches_jax():
     assert np.abs(jacts).max() > 0.5  # the table steers and accelerates
     np.testing.assert_allclose(tacts, jacts, rtol=0, atol=1e-5)
     np.testing.assert_allclose(final.x.numpy(), jfinal, rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------- the cluster net (fault P1)
+
+def test_torch_cluster_plan_batch_matches_jax():
+    """A ClusterWCRBFNet returns (out, gate_logits); the planner serves
+    ``out``. The committed frenet_wide_cluster (R=500 regions of K=10 under
+    a learned softmax gate) in f32, to tests/test_planning.py's cluster-case
+    tolerance (rtol 1e-6; atol 1e-5 for outputs near 0, where the f32
+    softmax gate's rounding is absolute)."""
+    model, variables, config = load_model("configs/frenet_wide_cluster.yaml",
+                                          "ckpts/frenet_wide_cluster")
+    variables = jax.tree.map(np.asarray, {"params": variables["params"]})
+    net = from_config(config, dtype=torch.float32, device="cpu")
+    net.load_state_dict(params_from_jax(variables, config))
+    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
+    x = _plan_inputs(np.random.default_rng(4), 240,
+                     float(tt.raceline.length)).astype(np.float32)
+    bounds = input_bounds_from_config(config)
+    with _jax_precision("f32"):
+        jp = JPlanner(model, variables, joval(30.0, 15.0, n_samples=512,
+                                              speed=3.0),
+                      use_pallas=False, input_bounds=bounds)
+        rj = jax.tree.map(np.asarray, jp.plan_batch(*x.T))
+    rt = IRBFNFrenetPlanner(net.eval(), tt, input_bounds=bounds).plan_batch(
+        *torch.from_numpy(x).T)
+    for field in rj._fields:
+        np.testing.assert_allclose(getattr(rt, field).numpy(),
+                                   getattr(rj, field), rtol=1e-6, atol=1e-5,
+                                   err_msg=field)
+    assert np.abs(rt.pred_controls.numpy()).max() > 0.1  # not a zero net
+
+
+# ------------------------------------------- the cartesian learned planner
+
+@pytest.fixture(scope="module")
+def cart_net():
+    """The committed cart_c1_pr: JAX model, f64 params and bounds, and the
+    port's f64 copy."""
+    model, variables, config = load_model("configs/cart_c1_pr.yaml",
+                                          "ckpts/cart_c1_pr")
+    variables = jax.tree.map(np.asarray, {"params": variables["params"]})
+    net = from_config(config, dtype=torch.float64, device="cpu")
+    net.load_state_dict(params_from_jax(variables, config))
+    v64 = jax.tree.map(lambda a: a.astype(np.float64), variables)
+    return model, v64, config, net.eval()
+
+
+def _cart_poses(rng, track, n):
+    """[x, y, theta, delta, v, beta, angv] near the raceline, theta up to
+    two laps off, a part of them past the trained grid."""
+    s = rng.uniform(0.0, float(track.raceline.length), n)
+    x, y, th = track.frenet_to_cartesian(
+        torch.from_numpy(s), torch.from_numpy(rng.uniform(-1.0, 1.0, n)),
+        torch.from_numpy(rng.uniform(-0.6, 0.6, n)))
+    laps = rng.integers(-1, 3, n) * 2.0 * np.pi
+    return np.stack([x.numpy(), y.numpy(), th.numpy() + laps,
+                     rng.uniform(-0.3, 0.3, n), rng.uniform(0.5, 8.0, n),
+                     rng.uniform(-0.15, 0.15, n), rng.uniform(-1.5, 1.5, n)],
+                    axis=-1)
+
+
+@pytest.mark.parametrize("mode,mirror", [("setpoint", False),
+                                         ("setpoint", True),
+                                         ("rate", True)])
+def test_torch_cart_plan_batch_matches_jax(cart_net, mode, mirror):
+    """IRBFNPlanner in f64: the body-frame goal, the wrapped heading, the
+    exact mirror on ly < 0 and the un-mirror of the sv block, the clamp, the
+    single-track rollout and both steer modes, to 1e-9 (the flagship's
+    f64 tolerance)."""
+    from irbfn_tpu.planning import IRBFNPlanner as JCart
+    from irbfn_tpu_torch.planning import IRBFNPlanner
+
+    model, v64, config, net = cart_net
+    bounds = input_bounds_from_config(config)
+    jt = joval(30.0, 15.0, n_samples=512, speed=3.0)
+    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
+    kw = dict(mirror=mirror, sv_ind=5, input_bounds=bounds, steer_mode=mode)
+    pose = _cart_poses(np.random.default_rng(2), tt, 200)
+    jp = JCart(model, v64, jt, dtype=jnp.float64, use_pallas=False, **kw)
+    rj = jax.tree.map(np.asarray, jp.plan_batch(*pose.T))
+    tp = IRBFNPlanner(net, tt, dtype=torch.float64, **kw)
+    rt = tp.plan_batch(*torch.from_numpy(pose).T)
+    for field in rj._fields:
+        np.testing.assert_allclose(getattr(rt, field).numpy(),
+                                   getattr(rj, field), rtol=1e-9, atol=1e-9,
+                                   err_msg=field)
+    obs = dict(zip(("pose_x", "pose_y", "pose_theta", "delta",
+                    "linear_vel_x", "beta", "ang_vel_z"),
+                   (float(v) for v in pose[7])))
+    np.testing.assert_allclose(tp.plan(obs), jp.plan(obs), rtol=0,
+                               atol=1e-9)
+    with pytest.raises(ValueError):
+        IRBFNPlanner(net, tt, steer_mode="nope")
+
+
+def test_torch_cart_closed_loop_matches_jax(cart_net):
+    """cart_c1_pr in closed loop on the oval, 9 lanes x 150 steps, f64: the
+    same laps and done flags, actions per step to 1e-5 (the f32 raceline's
+    last-place geometry, grown by the feedback, as the Frenet loop's)."""
+    from irbfn_tpu.planning import IRBFNPlanner as JCart
+    from irbfn_tpu_torch.planning import IRBFNPlanner
+
+    model, v64, config, net = cart_net
+    bounds = input_bounds_from_config(config)
+    B, N = 9, 150
+    vec = _lanes(np.float64)
+    jt = joval(30.0, 15.0, n_samples=512, speed=3.0)
+    je = JEnv(jt, JParams.from_vector(jnp.asarray(vec)), half_width=2.0)
+    jp = JCart(model, v64, jt, dtype=jnp.float64, use_pallas=False,
+               input_bounds=bounds)
+    tt = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
+    te = TrackEnv(tt, VehicleParams.from_vector(torch.from_numpy(vec)),
+                  half_width=2.0)
+    tp = IRBFNPlanner(net, tt, dtype=torch.float64, input_bounds=bounds)
+    js = je.reset(s0=jnp.zeros(B), speed0=1.0, batch_shape=(B,))
+    ts = te.reset(speed0=1.0, batch_shape=(B,))
+    aj, at = [], []
+    for _ in range(N):
+        oj, ot = je.observe(js), te.observe(ts)
+        rj = jp.plan_batch(oj.pose_x, oj.pose_y, oj.pose_theta, oj.delta,
+                           oj.linear_vel_x, oj.beta, oj.ang_vel_z)
+        rt = tp.plan_batch(ot.pose_x, ot.pose_y, ot.pose_theta, ot.delta,
+                           ot.linear_vel_x, ot.beta, ot.ang_vel_z)
+        aj.append(np.stack([np.asarray(rj.accel), np.asarray(rj.steer_vel)],
+                           -1))
+        at.append(torch.stack([rt.accel, rt.steer_vel], -1))
+        js = je.step(js, jnp.asarray(aj[-1]))
+        ts = te.step(ts, at[-1])
+    np.testing.assert_allclose(torch.stack(at).numpy(), np.stack(aj),
+                               rtol=0.0, atol=1e-5)
+    np.testing.assert_array_equal(ts.done.numpy(), np.asarray(js.done))
+    np.testing.assert_array_equal(ts.laps.numpy(), np.asarray(js.laps))
+    assert (ts.s.numpy() > 5.0).all() and int((~ts.done).sum()) >= 6

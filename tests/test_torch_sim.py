@@ -190,6 +190,9 @@ def test_torch_rollout_and_deviation_metrics(tracks):
     for a, b in zip(ft, fj):
         _close(a, b, **TOL_GEOM)
     for a, b in zip(trt.obs, trj.obs):
+        if b is None:  # no scan_spec: neither observation carries a scan
+            assert a is None
+            continue
         _close(a, b, **TOL_GEOM)
     # masking: a done pattern shared by both packages' records
     done = np.zeros((40, B), bool)
@@ -210,11 +213,17 @@ def test_torch_rollout_and_deviation_metrics(tracks):
 
 
 def test_torch_env_not_ported_options_raise(tracks):
-    _, tt = tracks
-    for kw in ({"occ_map": object()}, {"scan_spec": object()},
-               {"enable_ttc": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The map-world options are ported (tests/test_torch_map.py); as in
+    the JAX package, scans and the iTTC check without a map raise."""
+    jt, tt = tracks
+    omap = object()
+    assert TrackEnv(tt, f1tenth_params(device="cpu"),
+                    occ_map=omap).occ_map is omap
+    for kw in ({"scan_spec": object()}, {"enable_ttc": True}):
+        with pytest.raises(ValueError, match="require an occ_map"):
             TrackEnv(tt, f1tenth_params(device="cpu"), **kw)
+        with pytest.raises(ValueError, match="require an occ_map"):
+            JEnv(jt, jf1tenth(), **kw)
 
 
 def _pid_inputs(rng, B):
