@@ -16,7 +16,14 @@ drive the closed loop; and the map world and the bank: the 12-arm
 grip-adaptive bank (``rbf_forward`` twelve times a step), the cartesian
 planner, the flagship in a rasterized map with scans and iTTC, and the
 Oschersleben line through ``eval_closed_loop`` with a track bundle (both
-kernels). Each phase prints one line, and any failure exits non-zero:
+kernels); the clothoid pipeline of the IROS-2023 paper: the whole
+6,384,938-goal clothoid LUT solved on the card, ``clothoid_pr`` (R=128,
+K=256, F=3, O=5; ``rbf_forward``) over it, its recipe fitted on it, and the
+lattice planner; and the cartesian chain: a table made on the card, its
+stragglers patched, the ``cart_c1_pr`` recipe, the fitted net in the
+closed loop. Each phase prints one line (the new phases' entry points write
+their own output to ``torch_runs/chip_smoke_logs/phase<n>_*.log``), and
+any failure exits non-zero:
 
 1. device: requires CUDA (never falls back to the CPU); prints the card's
    name and power limit as nvidia-smi reports them;
@@ -79,7 +86,10 @@ kernels). Each phase prints one line, and any failure exits non-zero:
     table generator's chunk size: share feasible in each, flags that
     differ, objective gap and control difference on rows feasible in both;
     every row the 12-iteration cheap pass certifies meets the full pass's
-    tolerances;
+    tolerances; and the cheap pass in f32 on the 312 seeded rows of the
+    reference-parity lattice that the JAX package certified on a CPU
+    (``cheap_pass_golden.npz``; fault P4 of ROADMAP.md), its certified share
+    within ``TOL_CHEAP_SHARE`` of the JAX package's;
 21. the table: ``gen_nmpc_table_frenet.solve_table`` over the flagship
     table's ranges (per-axis counts cut: ``TABLE_COUNTS``), default
     budgets, tiered, the one-hot kept; solves/s of each pass and overall,
@@ -114,7 +124,31 @@ kernels). Each phase prints one line, and any failure exits non-zero:
     ``eval_closed_loop.run`` for the flagship (``rbf_forward``) and the
     goal-MPC solver (``admm_solve``), each kernel against its plain version
     at the path's shape, the loops against the JAX golden with the steps
-    whose goal lookahead reads the CSV's faulty seam rows masked.
+    whose goal lookahead reads the CSV's faulty seam rows masked;
+
+28. the clothoid LUT: the reference grid's 6,384,938 goals through
+    ``gen_clothoid_lut.solve_table`` (solves/s), every entry's endpoint miss
+    in f64 quadrature under the f32 bound, the card's f32 solution of the
+    golden's 65,536 goals against the JAX package's f64
+    (``scripts/export_torch_ckpt.py --clothoid_golden``), and the native
+    oracle (built in phase 2 with g++) on 4,096 of them;
+29. ``clothoid_pr`` through the kernel: against its plain version at
+    B=8192, against the JAX f64 golden on the 65,536 goals,
+    ``eval_lut_accuracy`` over the whole LUT in chunks of 2^18 (launches
+    counted), times at B = 2^18, 8192 and 360 with their bounds;
+30. the ``clothoid_pr`` recipe (``train_clothoid --num_x 8 --num_y 4
+    --num_t 4 --num_k 256 --error_reweight 2``) on phase 28's LUT, its
+    fine-tune CUT to ``CLOTHOID_FINETUNE_STEPS`` steps: seconds of each
+    part, and the fitted net's endpoint means over the LUT beside the
+    committed net's of phase 29;
+31. ``LatticePlanner`` in net and oracle mode against the golden's plans,
+    then ms per plan and one kernel forward per plan;
+32. the cartesian chain: ``gen_nmpc_table_cartesian`` over the reference
+    ranges with the counts cut (``CART_TABLE_ARGS``), made without its
+    straggler pass, ``patch_table_stragglers`` on its flagged rows,
+    ``train_cartesian`` with ``cart_c1_pr``'s recipe, the fitted net
+    through ``eval_closed_loop --planner irbfn_cart`` on the sweep, and
+    ``eval_nmpc_oracle`` on 39 rows.
 
 The last two lines are a JSON object naming both kernels with their
 launches, errors, times and bounds, and the line
@@ -123,6 +157,8 @@ launches, errors, times and bounds, and the line
 Usage, from the repository root: ``python3 chip_smoke.py``
 """
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -146,6 +182,11 @@ BANK_GOLDEN = os.path.join(ASSETS, "bank6_golden.npz")
 CART_ASSET = os.path.join(ASSETS, "cart_c1_pr")
 MAP_GOLDEN = os.path.join(ASSETS, "map_golden.npz")
 OSCH_CSV = os.path.join(ROOT, "data", "Oschersleben_raceline_feasible.csv")
+CLOTHOID_ASSET = os.path.join(ASSETS, "clothoid_pr")
+CLOTHOID_GOLDEN = os.path.join(ASSETS, "clothoid_golden.npz")
+CHEAP_GOLDEN = os.path.join(ASSETS, "cheap_pass_golden.npz")
+# where the long outputs of phases 28-32's entry points are written
+LOG_DIR = os.path.join(ROOT, "torch_runs", "chip_smoke_logs")
 # rows of that CSV whose heading is off by 2*pi/3 (ROADMAP.md, faults, R2)
 OSCH_SEAM_ROWS = (0, 799)
 KERNELS = {
@@ -183,6 +224,34 @@ FRENET_FIT_ARGS = ("--mirror_data", "--direct_fit", "--fit_mode",
                    "per_region", "--num_k", "512", "--num_ey", "2",
                    "--num_vx_car", "2", "--num_epsi", "2", "--num_curv", "2",
                    "--tube_npz", TUBE_NPZ)
+
+# the clothoid chain: the reference LUT (251 x 161 x 158 = 6,384,938 goals,
+# the generator's defaults), eval_lut_accuracy's chunk, the clothoid_pr
+# recipe of docs/ARTIFACTS.md (8 x 4 x 4 regions, 256 kernels, two IRLS
+# rounds, 30 fine-tune epochs) with the fine-tune CUT to a number of steps
+# (the recipe's 30 epochs are 30 x 779 steps at batch 8192), the native
+# oracle's sample, and the plans timed
+LUT_ARGS = ()  # the generator's flags: its defaults, the reference grid
+LUT_GOALS = 251 * 161 * 158
+CLOTHOID_CHUNK = 1 << 18
+CLOTHOID_FIT_ARGS = ("--num_x", "8", "--num_y", "4", "--num_t", "4",
+                     "--num_k", "256", "--error_reweight", "2",
+                     "--finetune_epochs", "30")
+CLOTHOID_FINETUNE_STEPS = 300
+N_ORACLE_GOALS = 4096
+N_PLANS = 100
+# the cartesian chain: the reference 7-D ranges with the counts cut to
+# 8 x 6 x 6 x 9 x 4 x 3 x 3 = 93,312 rows (the defaults' steps give
+# 8 x 18 x 18 x 63 x 8 x 7 x 13 = 106.5M rows; cart_c1's 2,437,120), made
+# without its straggler pass, which patch_table_stragglers then runs; the
+# cart_c1_pr recipe (docs/ARTIFACTS.md); 39 rows for eval_nmpc_oracle
+CART_TABLE_ARGS = ("--d_x_goal", "0.7", "--d_y_goal", "0.7", "--d_t_goal",
+                   "0.775", "--d_v_goal", str(7.0 / 3.0), "--d_beta", "0.6",
+                   "--d_angv_z", "3.0")
+CART_FIT_ARGS = ("--direct_fit", "--fit_mode", "per_region", "--num_k",
+                 "512", "--num_t_goal", "4", "--num_v_car", "2",
+                 "--num_angv_z", "2")
+N_ORACLE_ROWS = 39
 
 # Tolerances, with their reasons:
 # - the flagship head is ill-conditioned (sum |w| ~ 2e5 per output): an f32
@@ -349,6 +418,29 @@ TOL_RAYS_ANY = 1e-2  # every ray
 #   the port's plain versions on a CPU (flagship / goal-MPC solver) left
 #   the same lanes done with the same laps, per-lane mean |ey| 0.025 / 0.060
 #   mm (median), 2.5 / 5.7 mm at most;
+# the clothoid chain:
+# - the f32 G1 solve against the JAX package's f64 on the golden's 65,536
+#   goals: on a CPU the port's f32 was 2.5e-7, 1.0e-7 and 7.2e-6 from it (k0,
+#   dk, length; JAX's own f32 2.7e-7, 1.2e-7 and 8.4e-6);
+# - the LUT entries' endpoint miss (f64 quadrature of the f32 params): the
+#   JAX package's f32 entries miss by up to 1.4e-5 m and 1.6e-6 rad on the
+#   golden's goals, the port's f32 LUT on a CPU by up to 1.6e-5 m and 1.9e-6
+#   rad over all 6,384,938 goals: the f32 bound is 5e-5 m and 5e-6 rad (in
+#   f64 every entry is under 1e-6, tests/test_solvers.py);
+# - clothoid_pr's forward: the length head has sum |w| 5.0e5 per output, so
+#   an f32 forward is up to ~1e-3 from f64 (measured on a CPU: 9.1e-4 on the
+#   length, 1.0e-4 on k3);
+# - the lattice planner in f32: the CPU test's tolerances;
+# - the cheap pass's certified share against the JAX package's on the
+#   312-row sample: the JAX package against itself (its iteration written
+#   as a Python loop) differs on 2.9% of those rows.
+TOL_CLOTHOID_SOL = {"k0": 1e-6, "dk": 5e-7, "length": 3e-5}
+TOL_CLOTHOID_ORACLE = 1e-8  # rtol, f64 oracle against JAX f64
+TOL_LUT_MISS_M = 5e-5
+TOL_LUT_MISS_RAD = 5e-6
+TOL_CLOTHOID_FORWARD = 5e-3
+TOL_PLAN = dict(rtol=1e-3, atol=2e-3)
+TOL_CHEAP_SHARE = 0.03
 TOL_OSCH_DONE_LANES = 3
 TOL_OSCH_EY_MEDIAN_MM = 5.0
 TOL_OSCH_EY_LANE_MM = 50.0
@@ -407,12 +499,22 @@ def ptxas_summary(log: str) -> str:
 
 
 def phase_build():
-    """Both kernels' nvcc processes, started together; registers and spills
-    of every kernel, which must be none."""
+    """Both kernels' nvcc processes and the native module's g++, started
+    together; registers and spills of every kernel, which must be none."""
+    from irbfn_tpu_torch import native
     from irbfn_tpu_torch.ops import KERNELS as OPS, build_kernel
 
-    with ThreadPoolExecutor(len(OPS)) as pool:
+    def timed_native():
+        t0 = time.perf_counter()
+        return native.build(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(OPS) + 1) as pool:
+        lib = pool.submit(timed_native)
         results = dict(zip(OPS, pool.map(build_kernel, OPS)))
+        lib_path, lib_s = lib.result()
+    print(f"build native module: {lib_path.name} in {lib_s:.2f} s (g++, the "
+          f"port's copies of clothoid_oracle.cpp, table_io.cpp, edt.cpp)",
+          flush=True)
     for name, res in results.items():
         print(f"build {name}: {res.path.name} in {res.seconds:.2f} s nvcc"
               f"{' (already built)' if res.seconds == 0.0 else ''}; "
@@ -1623,7 +1725,49 @@ def phase_nmpc_f32(device):
           f"f32 vs f64 control difference p50/p90 {_pct(du)}")
     check(_pct(gap)[0] <= TOL_F32_GAP[0] and _pct(gap)[1] <= TOL_F32_GAP[1],
           f"f32 vs f64 objective gap p50/p90 {_pct(gap)}")
+    phase_cheap_pass_p4(device)
     return share
+
+
+def phase_cheap_pass_p4(device):
+    """Phase 20, continued: the cheap pass in f32 on the 312 seeded rows of
+    the reference-parity lattice that the JAX package certified on a CPU
+    (``cheap_pass_golden.npz``), in its 39-row chunks, and on the 39-row
+    test shape."""
+    import dataclasses
+
+    import torch
+
+    from irbfn_tpu_torch.dynamics import fullscale_params
+    from irbfn_tpu_torch.solvers import nmpc
+
+    with np.load(CHEAP_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    cfg = dataclasses.replace(nmpc.NMPCConfig(), gn_iters=12)
+    p32 = fullscale_params(device=device)
+    rows = torch.as_tensor(g["rows"], device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flags = torch.cat([nmpc.solve_lattice_point(rows[i:i + 39], p32,
+                                                cfg).feasible
+                       for i in range(0, len(rows), 39)]).cpu().numpy()
+    test = nmpc.solve_lattice_point(rows[torch.as_tensor(g["test_idx"],
+                                                         device=device)],
+                                    p32, cfg).feasible.cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want, want_test = g["flags_f32"], g["test_flags_f32"]
+    diff = np.flatnonzero(flags != want)
+    print(f"cheap pass in f32 on the card (P4), 312 seeded rows of the "
+          f"reference-parity lattice in 39-row chunks: the port certifies "
+          f"{flags.sum()} ({100 * flags.mean():.2f}%), the JAX package on a "
+          f"CPU {want.sum()} ({100 * want.mean():.2f}%), flags differ on "
+          f"{diff.size} rows {diff.tolist()}; the 39-row test shape: "
+          f"{test.sum()} against {want_test.sum()}, {int((test != want_test).sum())} "
+          f"flags differ; {wall:.1f} s", flush=True)
+    check(abs(flags.mean() - want.mean()) <= TOL_CHEAP_SHARE,
+          f"cheap pass certified {flags.mean():.4f} against the JAX "
+          f"package's {want.mean():.4f}")
 
 
 def phase_frenet_table(device, out_dir):
@@ -2290,6 +2434,418 @@ def worlds(device, model, config):
     return rbf, admm
 
 
+# ------------------------------------------------------ the clothoid chain
+
+def _quiet(log, fn, *args, **kw):
+    """``fn(*args, **kw)`` with its standard output written to
+    ``LOG_DIR/<log>`` instead: (result, the text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args, **kw)
+    os.makedirs(LOG_DIR, exist_ok=True)
+    with open(os.path.join(LOG_DIR, log), "w") as f:
+        f.write(buf.getvalue())
+    return res, buf.getvalue()
+
+
+def phase_clothoid_lut(device, g, out_dir):
+    """Phase 28: the reference LUT solved on the card through the LUT
+    generator's solve, its entries' endpoint misses, against the JAX
+    package's f64 solutions of the golden's goals, and the native oracle."""
+    import torch
+
+    from irbfn_tpu_torch import native
+    from irbfn_tpu_torch.dynamics.spiral import clothoid_to_params
+    from irbfn_tpu_torch.parallel import gen_clothoid_lut as gl
+    from irbfn_tpu_torch.solvers.clothoid import solve_g1_hermite
+    from irbfn_tpu_torch.train import eval_lut_accuracy as el
+
+    args = gl.parse_args(list(LUT_ARGS) + ["--device", str(device),
+                                           "--save_path", out_dir])
+    res, _ = _quiet("phase28_gen_clothoid_lut.log", gl.solve_table, args)
+    n = len(res["goals"])
+    check(n == LUT_GOALS, f"the LUT has {n:,} goals")
+    path = gl.lut_path(args)
+    gl.save_lut(path, res["grid"], res["params"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = el.endpoint_errors(res["goals"], res["params"], CLOTHOID_CHUNK,
+                              device)
+    t_end = time.perf_counter() - t0
+    # the golden's goals: the same lattice rows, solved on the card
+    goals = torch.as_tensor(g["goals"], device=device)
+    check(bool(LUT_ARGS or np.array_equal(res["goals"][g["goal_idx"]],
+                                          g["goals"])),
+          "the golden's goals are not the LUT's")
+    sol = solve_g1_hermite(goals[:, 0], goals[:, 1], goals[:, 2])
+    e_sol = {k: float(np.abs(getattr(sol, k).double().cpu().numpy()
+                             - g[f"sol_f64_{k}"]).max())
+             for k in TOL_CLOTHOID_SOL}
+    # the native oracle (built by phase 2 on this machine), f64
+    g64 = g["goals"][:N_ORACLE_GOALS].astype(np.float64)
+    t0 = time.perf_counter()
+    oracle, status = native.clothoid_oracle(g64)
+    t_oracle = time.perf_counter() - t0
+    ok = status == 0
+    ref = clothoid_to_params(*(torch.as_tensor(g[f"sol_f64_{k}"][
+        :N_ORACLE_GOALS]) for k in ("k0", "dk", "length"))).numpy()
+    e_oracle = float((np.abs(oracle[ok] - ref[ok])
+                      / np.maximum(np.abs(ref[ok]), 1.0)).max())
+    card = sol.params[:N_ORACLE_GOALS].double().cpu().numpy()
+    e_card = np.abs(card - oracle)[ok].max(axis=0)
+    conv = float(res["converged"].mean())
+    miss, rad = float(errs["xy"].max()), float(errs["theta"].max())
+    counts = "x".join(str(a.num) for a in res["grid"])
+    cut = ("the reference grid, none cut" if not LUT_ARGS
+           else f"CUT by {' '.join(LUT_ARGS)}")
+    print(f"clothoid LUT on the card: {n:,} goals ({counts}, {cut}) in "
+          f"{res['seconds']:.2f} s = "
+          f"{n / res['seconds']:,.0f} solves/s (host copies included; "
+          f"chunks of {args.batch_per_device:,}); |g(a)| < 1e-8 on "
+          f"{100 * conv:.2f}% (an f32 residual: the JAX package's f32 "
+          f"reaches it on {100 * g['sol_f32_converged'].mean():.2f}% of the "
+          f"golden's goals, its f64 on "
+          f"{100 * g['sol_f64_converged'].mean():.2f}%); "
+          f"entries' endpoint miss (f64 quadrature, {t_end:.1f} s) max "
+          f"{miss:.2e} m, p99.9 {np.percentile(errs['xy'], 99.9):.2e} m, "
+          f"theta max {rad:.2e} rad (f32 bound {TOL_LUT_MISS_M:g} m, "
+          f"{TOL_LUT_MISS_RAD:g} rad); the card's f32 against the JAX "
+          f"package's f64 on the golden's {len(goals):,} goals: "
+          + ", ".join(f"{k} {v:.2e} (tol {TOL_CLOTHOID_SOL[k]:g})"
+                      for k, v in e_sol.items())
+          + f"; the native oracle on {N_ORACLE_GOALS:,} of them in "
+          f"{t_oracle:.2f} s: {100 * ok.mean():.2f}% solved, against JAX f64 "
+          f"relative {e_oracle:.2e} (tol {TOL_CLOTHOID_ORACLE:g}), the card's "
+          f"params against it max|err| "
+          + "/".join(f"{v:.1e}" for v in e_card), flush=True)
+    check(bool(np.isfinite(res["params"]).all()), "non-finite LUT entries")
+    check(miss <= TOL_LUT_MISS_M and rad <= TOL_LUT_MISS_RAD,
+          f"LUT endpoint miss {miss:.2e} m / {rad:.2e} rad")
+    bad = {k: v for k, v in e_sol.items() if not v <= TOL_CLOTHOID_SOL[k]}
+    check(not bad, f"f32 card solve vs JAX f64: {bad}")
+    check(ok.mean() > 0.99 and e_oracle <= TOL_CLOTHOID_ORACLE,
+          f"native oracle: {ok.mean():.4f} solved, {e_oracle:.2e}")
+    return dict(path=path, goals=res["goals"], params=res["params"],
+                seconds=res["seconds"], miss=miss)
+
+
+def _clothoid_bound(B, ops):
+    R, K, F = ops.centers.shape
+    O = ops.w.shape[-1]
+    nbytes = 4 * (sum(o.numel() for o in ops[:7]) + B * F + B * O)
+    return _bound(_rbf_flops(B, ops), nbytes)
+
+
+def phase_clothoid_net(device, g, lut):
+    """Phase 29: clothoid_pr (R=128, K=256, F=3, O=5, per-region heads)
+    through the kernel: against its plain version and the JAX golden, the
+    whole LUT through eval_lut_accuracy with launches counted, and times."""
+    import torch
+
+    from irbfn_tpu_torch.ops import rbf
+    from irbfn_tpu_torch.planning.lattice import sample_lookahead_grid
+    from irbfn_tpu_torch.train import eval_lut_accuracy as el
+
+    net, _ = _asset(CLOTHOID_ASSET, device)
+    ops = rbf.wcrbf_params_to_kernel(net)
+    goals = torch.as_tensor(g["goals"], device=device)
+    x8 = (goals[:8192] * net.input_scale).contiguous()
+    e_plain = _compare("clothoid_pr B=8192", x8, ops, TOL_CLOTHOID_FORWARD)
+    with torch.no_grad():
+        y = torch.cat([net(goals[i:i + 16384])
+                       for i in range(0, len(goals), 16384)])
+    e_jax = np.abs(y.double().cpu().numpy() - g["forward_f64"]).max(axis=0)
+    reset_launches()
+    ev, text = _quiet("phase29_eval_lut_accuracy.log", el.main, [
+        "--lut_path", lut["path"], "--config_f", CLOTHOID_ASSET + ".json",
+        "--ckpt", CLOTHOID_ASSET + ".npz", "--chunk", str(CLOTHOID_CHUNK),
+        "--device", str(device)])
+    launches = read_launches()
+    n_chunks = -(-LUT_GOALS // CLOTHOID_CHUNK)
+    # times: a chunk of eval_lut_accuracy, the lattice planner's batch, and
+    # the plain version where it fits (B = 2^18 would be a 34 GB tensor)
+    xb = torch.as_tensor(lut["goals"][:CLOTHOID_CHUNK], dtype=torch.float32,
+                         device=device)
+    xb = (xb * net.input_scale).contiguous()
+    x360 = (sample_lookahead_grid(15.0, 6.0, 8, 9, 5, device=device)
+            * net.input_scale).contiguous()
+    with torch.no_grad():
+        ms_big = min(_time_ms(lambda: rbf.wcrbf_forward(xb, ops), 10, 2)
+                     for _ in range(2))
+        ms_360, t360 = _in_turns(lambda: rbf.wcrbf_forward_reference(
+            x360, ops), lambda: rbf.wcrbf_forward(x360, ops))
+        ms_8k, t8k = _in_turns(lambda: rbf.wcrbf_forward_reference(x8, ops),
+                               lambda: rbf.wcrbf_forward(x8, ops), 20, 2)
+    bound_big, by_big = _clothoid_bound(CLOTHOID_CHUNK, ops)
+    bound_8k, _ = _clothoid_bound(8192, ops)
+    bound_360, _ = _clothoid_bound(360, ops)
+    means = {k: ev[f"{k}_mean"] for k in ("x", "y", "theta")}
+    print(f"clothoid_pr through the kernel (R=128, K=256, F=3, O=5): "
+          f"against the plain version at B=8192 max|err| {e_plain:.2e} "
+          f"(tol {TOL_CLOTHOID_FORWARD}), against the JAX f64 golden on "
+          f"{len(goals):,} goals max|err| per output "
+          + "/".join(f"{v:.1e}" for v in e_jax)
+          + f"; eval_lut_accuracy over the card's {LUT_GOALS:,}-goal LUT: "
+          f"endpoint means x {means['x']:.4e} y {means['y']:.4e} theta "
+          f"{means['theta']:.4e} (the golden's subset in f64: "
+          + "/".join(f"{v:.4e}" for v in g["end_err_f64"].mean(0))
+          + f"), planar miss p99 {ev['p99']:.3f} max {ev['miss_max']:.3f} "
+          f"m; launches {launches} ({n_chunks} chunks of "
+          f"{CLOTHOID_CHUNK:,}); times (CUDA events): B={CLOTHOID_CHUNK:,} "
+          f"kernel {ms_big:.3f} ms (bound {bound_big:.3f} ms by {by_big}, "
+          f"the whole LUT {ms_big * LUT_GOALS / CLOTHOID_CHUNK:.1f} ms of "
+          f"kernel against a bound of "
+          f"{bound_big * LUT_GOALS / CLOTHOID_CHUNK:.1f}); B=8192 kernel "
+          f"{ms_8k['kernel']:.4f} ms plain {ms_8k['plain']:.4f} ms (runs "
+          f"{t8k['kernel']} / {t8k['plain']}; bound {bound_8k:.4f}); B=360 "
+          f"kernel {ms_360['kernel']:.4f} ms plain {ms_360['plain']:.4f} ms "
+          f"(runs {t360['kernel']} / {t360['plain']}; bound "
+          f"{bound_360:.4f})", flush=True)
+    check(bool(torch.isfinite(y).all())
+          and float(e_jax.max()) <= TOL_CLOTHOID_FORWARD,
+          f"clothoid_pr vs JAX f64: {e_jax}")
+    check(launches["rbf_forward"] == n_chunks,
+          f"eval_lut_accuracy's launches {launches}")
+    check(all(np.isfinite(v) for v in means.values()), "non-finite means")
+    return dict(means=means, launches=launches["rbf_forward"],
+                max_abs_err=e_plain, ms_262144=ms_big,
+                plain_ms_8192=ms_8k["plain"], ms_8192=ms_8k["kernel"],
+                ms_360=ms_360["kernel"], plain_ms_360=ms_360["plain"],
+                bound_ms_262144=bound_big, bound_ms_8192=bound_8k,
+                bound_ms_360=bound_360, bound_by=by_big)
+
+
+def phase_clothoid_fit(device, lut, committed, out_dir):
+    """Phase 30: the clothoid_pr recipe on the card's LUT (the fine-tune
+    cut to CLOTHOID_FINETUNE_STEPS steps), seconds of each part, and the
+    fitted net's endpoint means beside the committed net's."""
+    import torch
+
+    from irbfn_tpu_torch.train import eval_lut_accuracy as el
+    from irbfn_tpu_torch.train import train_clothoid as tcl
+
+    args = tcl.parse_args(list(CLOTHOID_FIT_ARGS) + [
+        "--lut_path", "(phase 28's LUT)", "--finetune_steps",
+        str(CLOTHOID_FINETUNE_STEPS), "--run_name", "clothoid_card",
+        "--device", str(device), "--out_dir", out_dir])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res, text = _quiet("phase30_train_clothoid.log", tcl.train, args,
+                       lut["goals"].astype(np.float32),
+                       lut["params"].astype(np.float32))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    net = res["model"].eval()
+    t0 = time.perf_counter()
+    errs = el.endpoint_errors(
+        lut["goals"], el.net_params(net, lut["goals"], CLOTHOID_CHUNK),
+        CLOTHOID_CHUNK, device)
+    t_eval = time.perf_counter() - t0
+    means = {k: float(errs[k].mean()) for k in ("x", "y", "theta")}
+    ratio = {k: means[k] / committed[k] for k in means}
+    sec = res["seconds"]
+    steps = [ln for ln in text.splitlines() if ln.startswith("  step")]
+    print(f"clothoid recipe on the card (8x4x4 regions, K=256, per-region "
+          f"heads, 2 IRLS rounds; fine-tune CUT to "
+          f"{CLOTHOID_FINETUNE_STEPS} steps of the recipe's 30 epochs): "
+          f"train_clothoid {wall:.1f} s = "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sec.items())
+          + f" s; IRLS endpoint |x|+|y| means "
+          + "/".join(f"{v:.4f}" for v in res["irls_err_means"])
+          + f"; fine-tune {steps[0].strip() if steps else ''} .. "
+          f"{steps[-1].strip() if steps else ''}; probes param L1 "
+          f"{res['param_l1']:.5f} endpoint xy L1 {res['endpoint_l1']:.5f}; "
+          f"endpoint means over the LUT ({t_eval:.1f} s) x "
+          f"{means['x']:.4e} y {means['y']:.4e} theta {means['theta']:.4e}"
+          f", against the committed net's (phase 29) "
+          + "/".join(f"{v:.2f}x" for v in ratio.values())
+          + f"; kernel launches {launches}", flush=True)
+    check(all(bool(torch.isfinite(v).all())
+              for v in net.state_dict().values()), "non-finite weights")
+    check(all(np.isfinite(v) for v in means.values()), "non-finite means")
+    check(launches["rbf_forward"] >= 2, f"IRLS and probes: {launches}")
+    return net, means, read_launches()["rbf_forward"]
+
+
+def phase_lattice_planner(device, g):
+    """Phase 31: LatticePlanner in net and oracle mode against the golden,
+    then ms per plan and one kernel forward per plan in net mode.
+
+    The plan's cost amplifies a spiral's error (the obstacle term's slope is
+    2e3 (r - clearance) per metre), so the net mode is held in two parts:
+    the planner's arithmetic on the card fed the JAX net's own f32 spirals
+    (``plan_net_params``) against the JAX plans, and the kernel's spirals
+    of the 360 goals against those at the forward's tolerance, with the
+    same goal chosen."""
+    import torch
+
+    from irbfn_tpu_torch.planning.lattice import LatticePlanner, plan_lattice
+
+    net, _ = _asset(CLOTHOID_ASSET, device)
+    target, obstacles = g["plan_target"], g["plan_obstacles"]
+    jparams = torch.as_tensor(g["plan_net_params"], device=device)
+    errs, ms, launches = {}, {}, {}
+
+    def held(label, plan, pre, keys):
+        for k in keys:
+            a, b = getattr(plan, k).cpu().numpy(), g[pre + k]
+            errs[label + k] = float(np.abs(a - b).max())
+            check(bool(np.allclose(a, b, **TOL_PLAN)),
+                  f"{label}{k}: max|err| {np.abs(a - b).max():.2e}")
+        check(int(plan.costs.argmin()) == int(g[pre + "costs"].argmin()),
+              f"{label} argmin")
+
+    keys = ("costs", "weights", "best_params", "argmin_params")
+    for mode, model in (("net", net), ("oracle", None)):
+        planner = LatticePlanner(model, device=device)
+        check(bool(np.array_equal(planner.goals.cpu().numpy(),
+                                  g["plan_goals"])), "the planner's goals")
+        for case, obs in (("free", None), ("obs", obstacles)):
+            pre = f"plan_{mode}_{case}_"
+            plan = planner.plan(target, obs)
+            if mode == "oracle":
+                held(f"oracle_{case}_", plan, pre, keys)
+                continue
+            check(int(plan.costs.argmin()) == int(g[pre + "costs"].argmin()),
+                  f"net {case}: another goal chosen")
+            held(f"jax_spirals_{case}_", plan_lattice(
+                lambda _: jparams, planner.goals, target, obstacle_xy=obs,
+                temperature=planner.temperature), pre, keys)
+        with torch.no_grad():
+            if model is not None:
+                e_fwd = _max_err(net(planner.goals), jparams)
+                check(e_fwd <= TOL_CLOTHOID_FORWARD,
+                      f"the kernel's spirals of the plan's goals: {e_fwd:.2e}")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(N_PLANS):
+            plan = planner.plan(target, obstacles)
+        torch.cuda.synchronize()
+        ms[mode] = 1e3 * (time.perf_counter() - t0) / N_PLANS
+        launches[mode] = read_launches()
+    print(f"LatticePlanner (8x9x5 = 360 goals) against the JAX f32 golden, "
+          f"with and without obstacles: oracle mode (the clothoid solver) "
+          f"max|err| "
+          f"{max(v for k, v in errs.items() if k.startswith('oracle')):.2e}, "
+          f"the planner fed the JAX net's spirals "
+          f"{max(v for k, v in errs.items() if k.startswith('jax')):.2e} (tol "
+          f"rtol {TOL_PLAN['rtol']} atol {TOL_PLAN['atol']}); net mode: the "
+          f"kernel's spirals of the goals against JAX's max|err| "
+          f"{e_fwd:.2e} (tol {TOL_CLOTHOID_FORWARD}), the same goal chosen; "
+          f"per plan (host clock, {N_PLANS} plans): net {ms['net']:.3f} ms,"
+          f" oracle {ms['oracle']:.3f} ms; launches {launches}", flush=True)
+    check(launches["net"]["rbf_forward"] == N_PLANS,
+          f"one kernel forward per plan: {launches['net']}")
+    return launches["net"]["rbf_forward"], ms
+
+
+def clothoid_chain(device):
+    """Phases 28-31. Returns the rbf_forward launches of each path and the
+    numbers of the kernels line."""
+    with np.load(CLOTHOID_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    with tempfile.TemporaryDirectory() as out_dir:
+        lut = phase_clothoid_lut(device, g, out_dir)
+        net = phase_clothoid_net(device, g, lut)
+        _, _, fit_launches = phase_clothoid_fit(device, lut, net["means"],
+                                                out_dir)
+    del lut
+    plan_launches, plan_ms = phase_lattice_planner(device, g)
+    return dict(eval=net["launches"], fit=fit_launches,
+                planner=plan_launches), net
+
+
+# ------------------------------------------------------ the cartesian chain
+
+def phase_cartesian_chain(device):
+    """Phase 32: a cut cartesian table on the card, the straggler patch,
+    the cart_c1_pr recipe on it, the fitted net in the closed loop, and
+    eval_nmpc_oracle on 39 rows."""
+    import torch
+
+    from irbfn_tpu_torch.parallel import gen_nmpc_table_cartesian as gc
+    from irbfn_tpu_torch.parallel import patch_table_stragglers as pt
+    from irbfn_tpu_torch.parallel.datagen import save_table
+    from irbfn_tpu_torch.sim import eval_closed_loop as ev
+    from irbfn_tpu_torch.solvers import eval_nmpc_oracle as evo
+    from irbfn_tpu_torch.train import train_cartesian as tc
+
+    dev = str(device)
+    with tempfile.TemporaryDirectory() as d:
+        args = gc.parse_args(list(CART_TABLE_ARGS) + [
+            "--batch_per_device", str(NMPC_CHUNK), "--resolve_factor", "0",
+            "--run_tag", "_cut", "--save_path", d, "--device", dev])
+        res, _ = _quiet("phase32_gen_nmpc_table_cartesian.log",
+                        gc.solve_table, args)
+        n = len(res["rows"])
+        path = gc.table_name(args, res["grid"])
+        save_table(path, gc.cartesian_table(res["rows"], res["sol"]))
+        counts = "x".join(str(s.num) for s in res["grid"])
+        p, _ = _quiet("phase32_patch_table_stragglers.log", pt.patch,
+                      pt.parse_args(["--npz_path", path, "--batch_per_device",
+                                     str(NMPC_CHUNK), "--device", dev]))
+        np.savez(path, **p["data"])
+        valid = p["data"]["valid"]
+        fit, _ = _quiet("phase32_train_cartesian.log", tc.main,
+                        list(CART_FIT_ARGS) + [
+                            "--npz_path", path, "--run_name", "cart_card",
+                            "--device", dev, "--out_dir", d])
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop, _ = _quiet("phase32_eval_closed_loop.log", ev.run,
+                         ev.parse_args([
+                             "--planner", "irbfn_cart", "--config_f",
+                             fit["config_path"], "--ckpt", fit["ckpt_dir"],
+                             "--n_steps", str(N_STEPS), "--max_retries",
+                             "0", "--device", dev]))
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        launches = read_launches()
+    with np.load(CART_ASSET + "_golden.npz") as z:
+        committed = int((~z["loop_done"]).sum())
+    t0 = time.perf_counter()
+    m, _ = _quiet("phase32_eval_nmpc_oracle.log", evo.main,
+                  ["--n_rows", str(N_ORACLE_ROWS), "--device", dev])
+    t_oracle = time.perf_counter() - t0
+    print(f"cartesian chain on the card: table {n:,} rows, REDUCED (counts "
+          f"only) to {counts} over the reference ranges, chunks of "
+          f"{NMPC_CHUNK:,}, made without its straggler pass: cheap pass "
+          f"certified {100 * res['certified_cheap']:.1f}%, "
+          f"{100 * res['feasible_tiered']:.1f}% feasible, seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items())
+          + f", solves/s {res['rates']['tiered']:,.0f}; "
+          f"patch_table_stragglers (4x budget) recovered "
+          f"{int(p['recovered'].sum()):,}/{p['bad'].size:,} in "
+          f"{p['seconds']:.1f} s -> {100 * valid.mean():.1f}% feasible; "
+          f"train_cartesian (cart_c1_pr's recipe) control L1 "
+          f"{fit['fit_l1']:.4f}; the fitted net in eval_closed_loop "
+          f"--planner irbfn_cart over the sweep ({N_STEPS} steps, "
+          f"{t_loop:.1f} s): completion {100 * loop['completion'].mean():.1f}%"
+          f" on one attempt (the committed cart_c1_pr in the JAX golden of "
+          f"phase 25: {committed}/1000 lanes), mean|ey| "
+          f"{np.nanmean(loop['ey']):.4f} m; "
+          f"launches {launches}; eval_nmpc_oracle on {N_ORACLE_ROWS} rows "
+          f"({t_oracle:.1f} s): oracle feasible {m['oracle_feasible']}, "
+          f"solver {m['al_feasible']}, both {m['both_feasible']}, relative "
+          f"objective gap p50 {m['rel_obj_gap_p50']:.2e} p90 "
+          f"{m['rel_obj_gap_p90']:.2e}, control difference p50 "
+          f"{m['du_max_p50']:.2e}", flush=True)
+    check(valid.mean() >= 0.5, f"only {valid.mean():.1%} feasible")
+    check(bool(np.isfinite(fit["fit_l1"])), "non-finite fit")
+    check(bool(np.isfinite(loop["ey"]).all()
+               and np.isfinite(loop["completion"]).all()),
+          "non-finite closed-loop results")
+    check(launches["rbf_forward"] >= N_STEPS,
+          f"the loop's rbf_forward launches {launches}")
+    check(m["rel_obj_gap_p50"] < 1e-6 and m["rel_obj_gap_p90"] < 1e-4,
+          f"eval_nmpc_oracle: {m}")
+    return launches["rbf_forward"]
+
+
 def main() -> int:
     import torch
 
@@ -2335,16 +2891,24 @@ def main() -> int:
                                                   flagship_loop)
     # the map world and the bank
     world_rbf, osch_admm = worlds(device, model, config)
+    # the clothoid chain and the cartesian chain
+    clothoid_rbf, clothoid = clothoid_chain(device)
+    cart_rbf = phase_cartesian_chain(device)
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [
         dict(KERNELS["rbf_forward"],
              launches=(rbf_launches + frenet_launches + loop_launches
-                       + sum(world_rbf.values())),
+                       + sum(world_rbf.values())
+                       + sum(clothoid_rbf.values()) + cart_rbf),
              launches_frenet_loop=rbf_launches,
              launches_frenet_chain=frenet_launches + loop_launches,
              **{f"launches_{k}": v for k, v in world_rbf.items()},
              launches_fit_eval=chain_launches["rbf_forward"],
+             **{f"launches_clothoid_{k}": v for k, v in clothoid_rbf.items()},
+             launches_cartesian_chain=cart_rbf,
+             clothoid_pr={k: v for k, v in clothoid.items()
+                          if k not in ("means",)},
              max_abs_err=err_1024, **rbf_times),
         dict(KERNELS["admm_solve"], launches=admm_launches + osch_admm,
              launches_goal_loop=admm_launches,

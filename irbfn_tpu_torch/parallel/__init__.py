@@ -1,6 +1,7 @@
 """Lattice data generation on one device, and the table generators
 (``python -m irbfn_tpu_torch.parallel.gen_goal_mpc_table``,
-``python -m irbfn_tpu_torch.parallel.gen_nmpc_table_frenet``)."""
+``gen_nmpc_table_frenet``, ``gen_nmpc_table_cartesian``,
+``gen_clothoid_lut``) and ``patch_table_stragglers``."""
 
 from irbfn_tpu_torch.parallel.datagen import (
     CLOTHOID_GRID,

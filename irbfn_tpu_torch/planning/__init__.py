@@ -1,6 +1,7 @@
 """Planner layer: the learned Frenet and cartesian planners, the NMPC and
 goal-MPC planners, the explicit table planners, the EXP3 bandit, and the
-adaptive planners over a net bank with the online grip observer."""
+adaptive planners over a net bank with the online grip observer, and the
+spiral lattice planner."""
 
 from irbfn_tpu_torch.planning.bandits import (EXP3, exp3_init, exp3_probs,
                                               exp3_pull, exp3_update)
@@ -17,6 +18,9 @@ from irbfn_tpu_torch.planning.explicit import (
     stack_grid_tables,
 )
 from irbfn_tpu_torch.planning.goal_planner import GoalMPCPlanner
+from irbfn_tpu_torch.planning.lattice import (LatticePlan, LatticePlanner,
+                                              plan_lattice,
+                                              sample_lookahead_grid)
 from irbfn_tpu_torch.planning.grip import (GripConfig, GripState, grip_init,
                                            grip_record, grip_update)
 from irbfn_tpu_torch.planning.planner import (AdaptiveIRBFNPlanner,
@@ -32,4 +36,5 @@ __all__ = ["EXP3", "exp3_init", "exp3_probs", "exp3_pull", "exp3_update",
            "stack_grid_tables", "GoalMPCPlanner", "GripConfig", "GripState",
            "grip_init", "grip_record", "grip_update", "AdaptiveIRBFNPlanner",
            "GripAdaptiveFrenetPlanner", "IRBFNFrenetPlanner", "IRBFNPlanner",
-           "NMPCPlanner", "PlanResult", "stack_net_bank"]
+           "NMPCPlanner", "PlanResult", "stack_net_bank", "LatticePlan",
+           "LatticePlanner", "plan_lattice", "sample_lookahead_grid"]

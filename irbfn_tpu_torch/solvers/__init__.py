@@ -1,5 +1,13 @@
 """Solvers: the goal-MPC condensed box QP (family, row and lattice solves),
-the batched AL/Newton NMPC solver and its host-side SLSQP oracle."""
+the batched AL/Newton NMPC solver and its host-side SLSQP oracle, the
+clothoid G1-Hermite solver and batched Levenberg-Marquardt."""
+
+from irbfn_tpu_torch.solvers.clothoid import (
+    ClothoidSolution,
+    solve_g1_hermite,
+    solve_g1_lattice,
+    wrap_angle,
+)
 
 from irbfn_tpu_torch.solvers.goal_mpc import (
     GoalMPCConfig,
@@ -10,6 +18,7 @@ from irbfn_tpu_torch.solvers.goal_mpc import (
     solve_goal_lattice,
     solve_goal_mpc,
 )
+from irbfn_tpu_torch.solvers.lm import LMResult, levenberg_marquardt
 from irbfn_tpu_torch.solvers.nmpc import (
     NMPCConfig,
     NMPCSolution,
@@ -21,7 +30,9 @@ from irbfn_tpu_torch.solvers.nmpc import (
     solve_nmpc_batch,
 )
 
-__all__ = ["GoalMPCConfig", "GoalMPCSolution", "GoalQPFamily",
+__all__ = ["ClothoidSolution", "solve_g1_hermite", "solve_g1_lattice",
+           "wrap_angle", "LMResult", "levenberg_marquardt",
+           "GoalMPCConfig", "GoalMPCSolution", "GoalQPFamily",
            "condensed_family", "solve_goal_family", "solve_goal_lattice",
            "solve_goal_mpc", "NMPCConfig", "NMPCSolution",
            "cartesian_config", "kinematic_config", "solve_cartesian_point",

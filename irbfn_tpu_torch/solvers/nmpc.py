@@ -385,17 +385,48 @@ def _fused_derivatives(u, x0, goal, curv, lam, rho, p, cfg: NMPCConfig,
 
 
 def _solve_spd(A, b):
-    """Solve ``A x = b`` for a batch of small SPD systems by Cholesky.
-    A row whose ``A`` is not positive definite (or not finite) gets a NaN
-    step, which the caller's line search rejects (the LM-damping retry
-    loop); no row's failure raises or touches another row."""
-    finite = torch.isfinite(A).all(dim=(-2, -1))
-    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    L, info = torch.linalg.cholesky_ex(
-        torch.where(finite[..., None, None], A, eye))
-    x = torch.cholesky_solve(b[..., None], L)[..., 0]
-    bad = (info != 0) | ~finite
-    return torch.where(bad[..., None], torch.full_like(x, float("nan")), x)
+    """Solve ``A x = b`` for a batch of small SPD systems ``(B, n, n)`` by
+    Cholesky, in the JAX package's order of operations
+    (``_solve_spd_unrolled``): column by column, each entry's products
+    subtracted one at a time in ascending index order, then forward and
+    back substitution in the same order. Every operation is elementwise
+    over the batch, so a row's result does not depend on its neighbours or
+    on the batch size, and a pivot is refused exactly where the JAX package
+    refuses it: a negative pivot's square root is NaN, a zero pivot gives
+    an infinite step, and the caller's line search rejects a step that is
+    not finite (the LM-damping retry loop). No row's failure raises or
+    touches another row.
+
+    (LAPACK's blocked factorisation of ``cholesky_ex`` sums in another
+    order; in f32 that moves which borderline pivots are taken, and the
+    iterates of rows that the cheap pass leaves near its cap then part from
+    the JAX package's.)"""
+    n = A.shape[-1]
+    cols = []  # cols[j]: (B, n - j), L[j:, j]
+    for j in range(n):
+        s = A[:, j:, j]
+        for k in range(j):
+            lk = cols[k][:, j - k:]  # L[j:, k]; its first entry is L[j, k]
+            s = torch.addcmul(s, lk, lk[:, :1], value=-1.0)
+        d = torch.sqrt(s[:, :1])
+        cols.append(torch.cat([d, s[:, 1:] * (1.0 / d)], dim=1))
+    # forward substitution L y = b, column-oriented: every y_i subtracts
+    # its products in ascending k, as the JAX package's row loop does
+    r = b
+    ys = []
+    for k in range(n):
+        y = r[:, :1] / cols[k][:, :1]
+        ys.append(y)
+        r = torch.addcmul(r[:, 1:], cols[k][:, 1:], y, value=-1.0)
+    # back substitution L^T x = y, row by row in ascending k
+    xs = [None] * n
+    for i in range(n - 1, -1, -1):
+        s = ys[i]
+        for k in range(i + 1, n):
+            s = torch.addcmul(s, cols[i][:, k - i:k - i + 1], xs[k],
+                              value=-1.0)
+        xs[i] = s / cols[i][:, :1]
+    return torch.cat(xs, dim=1)
 
 
 def _line_search(u, step, obj_cands, lo_flat, hi_flat, cfg: NMPCConfig):

@@ -48,7 +48,7 @@ def make_problem_fns(params: VehicleParams, cfg: NMPCConfig):
     """f64 (value + grad, constraints, constraint Jacobian) closures over
     (x0, goal, curv) for scipy, each taking and returning tensors. The
     rollout and cost are the exact functions the batched solver optimizes."""
-    from torch.func import grad_and_value, jacfwd
+    from torch.func import grad_and_value, jacrev
 
     def cost(u_flat, x0, goal, curv):
         return _smooth_cost(u_flat, x0, goal, curv, params, cfg)
@@ -61,7 +61,7 @@ def make_problem_fns(params: VehicleParams, cfg: NMPCConfig):
         g, v = grad_and_value(cost)(u_flat, x0, goal, curv)
         return v, g
 
-    return vg, cons, jacfwd(cons)
+    return vg, cons, jacrev(cons)
 
 
 def solve_oracle_rows(rows: np.ndarray, params: VehicleParams | None = None,

@@ -1,7 +1,8 @@
 """Training: losses, the Adam trainer, checkpoint and config I/O, and
 constraint-pattern clustering. The entry points are modules of this package
 run with ``python -m``: ``train_goal_mpc``, ``eval_goal_mpc``,
-``train_frenet`` and ``eval_offline``."""
+``train_frenet``, ``eval_offline``, ``train_cartesian``,
+``train_clothoid``, ``eval_lut_accuracy`` and ``cluster_constraints``."""
 
 from irbfn_tpu_torch.train.checkpoints import (
     checkpoint_steps,

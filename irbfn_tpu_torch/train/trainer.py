@@ -281,7 +281,7 @@ def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
                  batch_size: int, epochs: int, seed: int, extra=None,
                  log_fn=None, checkpoint_fn=None,
                  checkpoint_every: int = 100, log_every: int = 25,
-                 device=None):
+                 device=None, max_steps: Optional[int] = None):
     """Permutation mini-batch epochs.
 
     The table goes to the device ONCE (tensors already there are used as
@@ -291,7 +291,8 @@ def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
     for ``PRNGKey(seed)``). ``log_fn(step, metrics)`` fires every
     ``log_every`` steps: turning a metric into a float waits for the device,
     so a step does not. ``checkpoint_fn(trainer, epoch)`` fires every
-    ``checkpoint_every`` epochs and after the last.
+    ``checkpoint_every`` epochs and after the last. ``max_steps`` ends the
+    run after that many steps in all (the last epoch is then partial).
 
     Returns ``(trainer, mean loss of the last epoch)``.
     """
@@ -306,7 +307,10 @@ def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
     steps = max(1, n // batch_size)
     np_rng = np.random.default_rng(int(seed))
     losses = []
+    done = 0
     for e in range(epochs):
+        if max_steps is not None and done >= max_steps:
+            break
         perms = np_rng.permutation(n)[: steps * batch_size]
         perms = torch.as_tensor(perms.reshape(steps, batch_size))
         if device.type == "cuda":
@@ -314,6 +318,9 @@ def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
         perms = perms.to(device, non_blocking=True)
         losses = []
         for b in range(steps):
+            if max_steps is not None and done >= max_steps:
+                break
+            done += 1
             idx = perms[b]
             args = (inputs[idx], outputs[idx])
             if extra is not None:

@@ -1,7 +1,6 @@
 """Centralized CLI flag groups for the port's entry points: vehicle,
 training, eval and io flags. Port of ``irbfn_tpu/utils/args.py``, with the
-same flags and defaults (the clothoid grid group comes with the table
-generator that uses it), plus ``add_device_args`` (where an entry point
+same flags and defaults, plus ``add_device_args`` (where an entry point
 runs and where it writes)."""
 
 from __future__ import annotations
@@ -21,6 +20,22 @@ def add_frenet_grid_args(p: argparse.ArgumentParser):
         g.add_argument(f"--{name}_min", type=float, default=lo)
         g.add_argument(f"--{name}_max", type=float, default=hi)
         g.add_argument(f"--num_{name}", type=int, default=num)
+    return p
+
+
+def add_clothoid_grid_args(p: argparse.ArgumentParser):
+    """Clothoid goal-lattice flags: x, y, theta ranges and steps (the
+    reference's defaults: 251 x 161 x 158 = 6,384,938 goals)."""
+    g = p.add_argument_group("clothoid grid")
+    g.add_argument("--minx", type=float, default=5.0)
+    g.add_argument("--maxx", type=float, default=30.0)
+    g.add_argument("--dx", type=float, default=0.1)
+    g.add_argument("--miny", type=float, default=-8.0)
+    g.add_argument("--maxy", type=float, default=8.0)
+    g.add_argument("--dy", type=float, default=0.1)
+    g.add_argument("--mint", type=float, default=-1.57)
+    g.add_argument("--maxt", type=float, default=1.57)
+    g.add_argument("--dt", type=float, default=0.02)
     return p
 
 

@@ -91,6 +91,34 @@ the npz layout). Writes to ``irbfn_tpu_torch/assets/``:
   the goal-MPC solver (``osch_goal_mpc_*``): per-lane results, and per step
   the lanes' |ey|, actions and the lookahead's raceline index.
 
+- for ``clothoid_pr`` with ``--golden`` (or ``--clothoid_golden``, which
+  also writes the run), ``clothoid_golden.npz``:
+    * ``goals``: every 97th goal of the default 251 x 161 x 158 LUT lattice
+      (65,536 goals, f32, 'ij' order; ``goal_idx`` into the lattice), and
+      ``sol_f64_*`` / ``sol_f32_*``: the JAX ``solve_g1_hermite`` solutions
+      (k0, dk, length, residual, converged) of them in each precision;
+    * ``forward_f64``: the flax forward of ``clothoid_pr`` on them in f64,
+      and ``end_err_f64`` (65,536, 3): |x|, |y| and |wrapped theta| of
+      those spirals' endpoints against the goals (``integrate_endpoint_gl``
+      in f64);
+    * ``plan_{net,oracle}_{free,obs}_*``: one ``LatticePlanner.plan`` of
+      each mode (the net, and the exact solver), toward ``plan_target``,
+      without and with the obstacles ``plan_obstacles``, in f32: costs,
+      weights, best and argmin params and paths; and ``plan_net_params``,
+      the net's f32 spirals of the 360 goals.
+- with ``--cheap_pass_check``, the cheap-pass comparison (prints); with
+  ``--out PATH`` also the JAX side as a golden (``cheap_pass_golden.npz``):
+  ``rows`` (the 312 seeded rows), ``flags_f32``/``kkt_f32`` and
+  ``flags_f64``/``kkt_f64`` (JAX, 39-row chunks), and ``test_idx`` (39
+  rows: the seven named in ``P4_ROWS`` and the first 32 others) with
+  ``test_flags_f32``/``test_kkt_f32``: JAX f32 solving those 39 as one
+  batch (the port's test shape).
+- with ``--cart_chain_golden``, ``cart_chain_golden.npz``: the rows of the
+  cut cartesian grid of ``CART_TEST_ARGS`` (128 rows) and the JAX f64
+  ``solve_cartesian_point`` solutions of every row at the three budgets of
+  a tiered table made with ``CART_TEST_TIERS`` (``{cheap,full,hard}_*``:
+  accel, steer_vel, feasible, kkt).
+
 Usage (from the repo root):
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --nmpc_golden   # ~6 min
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run frenet_wide_pr1 --golden
@@ -100,7 +128,10 @@ Usage (from the repo root):
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --bank_golden   # writes the 12 arms too
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --map_golden
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --bank_golden --nudge 1e-6  # JAX vs itself
-    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --cheap_pass_check  # ~5 min
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --cheap_pass_check \
+        --out irbfn_tpu_torch/assets/cheap_pass_golden.npz  # ~5 min
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --clothoid_golden
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --cart_chain_golden
 """
 
 import argparse
@@ -719,13 +750,22 @@ PARITY_GRID = (("ey", -0.2, 2.0, 8), ("delta", -0.3, 0.3, 5),
                ("epsi", -1.0, 1.0, 9), ("curv", -0.1, 0.1, 3))
 CHEAP_ITERS = 12
 CHEAP_ROWS = 8 * NMPC_CHUNK  # seeded lattice rows, in 39-row solves
+# rows of the sample whose f32 flags parted from the JAX package's
+P4_ROWS = (20, 66, 67, 102, 128, 161, 175)
 
 
-def cheap_pass_check():
+def cheap_pass_test_idx():
+    """The port's 39-row test shape: ``P4_ROWS`` and the first 32 others."""
+    others = [i for i in range(CHEAP_ROWS) if i not in P4_ROWS]
+    return np.asarray(sorted(list(P4_ROWS) + others[:NMPC_CHUNK - 7]))
+
+
+def cheap_pass_check(out_path=None):
     """The tiered table generator's cheap pass (Newton iterations capped at
     12) on seeded rows of the reference-parity lattice, in f32 and in f64,
     through the JAX package and the port on the CPU: certificate flags row
-    by row, and the KKT residuals of the rows whose flags differ."""
+    by row, and the KKT residuals of the rows whose flags differ. With
+    ``out_path``, the JAX side is written there as a golden."""
     import torch
 
     from irbfn_tpu.dynamics.params import fullscale_params
@@ -741,6 +781,7 @@ def cheap_pass_check():
     chunks = range(0, CHEAP_ROWS, NMPC_CHUNK)
     cfg_j, cfg_t = (NMPCConfig(gn_iters=CHEAP_ITERS),
                     tnmpc.NMPCConfig(gn_iters=CHEAP_ITERS))
+    golden = {"rows": rows}
     for name, x64, jdt, tdt in (("f32", False, jnp.float32, torch.float32),
                                 ("f64", True, jnp.float64, torch.float64)):
         t0 = time.perf_counter()
@@ -752,6 +793,14 @@ def cheap_pass_check():
             flags_j = np.concatenate([np.asarray(s.feasible) for s in sols])
             kkt_j = np.concatenate([np.asarray(s.kkt_residual)
                                     for s in sols])
+            golden.update({f"flags_{name}": flags_j, f"kkt_{name}": kkt_j})
+            if name == "f32":
+                idx = cheap_pass_test_idx()
+                s = solve_lattice_point(jnp.asarray(rows[idx], jdt), params,
+                                        cfg_j)
+                golden.update(test_idx=idx,
+                              test_flags_f32=np.asarray(s.feasible),
+                              test_kkt_f32=np.asarray(s.kkt_residual))
         t_j = time.perf_counter() - t0
         t0 = time.perf_counter()
         tparams = t_fullscale(dtype=tdt, device="cpu")
@@ -773,6 +822,118 @@ def cheap_pass_check():
               + ", ".join(f"{kkt_j[i]:.3g}/{kkt_t[i]:.3g}" for i in diff)
               + f"; KKT residual |JAX - port| median "
               f"{np.median(np.abs(kkt_j - kkt_t)):.2e}", flush=True)
+    if out_path:
+        np.savez_compressed(out_path, **golden)
+        print(f"wrote {out_path}")
+
+
+CLOTHOID_STRIDE = 97  # 6,384,938 // 65,536
+CLOTHOID_N = 65536
+PLAN_TARGET = (12.0, 1.5)
+PLAN_OBSTACLES = ((6.0, 0.5), (9.0, -2.0))
+
+
+def clothoid_golden(model, variables, config):
+    """See the module docstring (``clothoid_golden.npz``)."""
+    from irbfn_tpu.dynamics import integrate_endpoint_gl
+    from irbfn_tpu.parallel import CLOTHOID_GRID
+    from irbfn_tpu.planning.lattice import LatticePlanner
+    from irbfn_tpu.solvers.clothoid import solve_g1_hermite, wrap_angle
+
+    lattice = build_lattice(CLOTHOID_GRID, dtype=np.float32)
+    idx = np.arange(0, len(lattice), CLOTHOID_STRIDE)[:CLOTHOID_N]
+    goals = lattice[idx]
+    out = {"goals": goals, "goal_idx": idx}
+    for name, x64, dt in (("f64", True, jnp.float64),
+                          ("f32", False, jnp.float32)):
+        with jax.enable_x64(x64):
+            g = jnp.asarray(goals, dt)
+            sol = solve_g1_hermite(g[:, 0], g[:, 1], g[:, 2])
+            out.update({f"sol_{name}_{k}": np.asarray(getattr(sol, k))
+                        for k in sol._fields})
+    # the committed net in f64, in chunks (R=128 x K=256 features per row)
+    v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                       {"params": variables["params"]})
+    apply = jax.jit(lambda x: model.apply(v64, x))
+    fwd = np.concatenate([np.asarray(apply(jnp.asarray(goals[i:i + 2048],
+                                                        jnp.float64)))
+                          for i in range(0, CLOTHOID_N, 2048)])
+    end = np.asarray(integrate_endpoint_gl(jnp.asarray(fwd)))
+    g64 = goals.astype(np.float64)
+    out["forward_f64"] = fwd
+    out["end_err_f64"] = np.stack([
+        np.abs(end[:, 0] - g64[:, 0]), np.abs(end[:, 1] - g64[:, 1]),
+        np.abs(np.asarray(wrap_angle(jnp.asarray(end[:, 2] - g64[:, 2]))))],
+        axis=-1)
+    print(f"clothoid golden: {CLOTHOID_N:,} goals solved in f64 and f32, "
+          f"the net's endpoint |x| mean {out['end_err_f64'][:, 0].mean():.4f}"
+          f", |y| mean {out['end_err_f64'][:, 1].mean():.4f}", flush=True)
+    out.update(plan_target=np.asarray(PLAN_TARGET, np.float32),
+               plan_obstacles=np.asarray(PLAN_OBSTACLES, np.float32))
+    with jax.enable_x64(False):
+        planners = {"net": LatticePlanner(model, _f32(variables)),
+                    "oracle": LatticePlanner()}
+        for mode, planner in planners.items():
+            for case, obs in (("free", None), ("obs", PLAN_OBSTACLES)):
+                plan = planner.plan(PLAN_TARGET, obs)
+                for k in ("costs", "weights", "best_params", "argmin_params",
+                          "best_path", "argmin_path"):
+                    out[f"plan_{mode}_{case}_{k}"] = np.asarray(
+                        getattr(plan, k))
+        out["plan_goals"] = np.asarray(planners["net"].goals)
+        out["plan_net_params"] = np.asarray(
+            planners["net"]._param_fn(planners["net"].goals))
+    return out
+
+
+# a cut cartesian grid (2 values per axis: 128 rows) and the budgets of its
+# tiered table: cheap pass cap, then gn_iters/al_outer, resolve factor
+CART_TEST_ARGS = ("--v_car_min", "1", "--v_car_max", "5", "--d_v_car", "4",
+                  "--x_goal_min", "1", "--x_goal_max", "3", "--d_x_goal", "2",
+                  "--y_goal_min", "0", "--y_goal_max", "2", "--d_y_goal", "2",
+                  "--t_goal_min", "-1", "--t_goal_max", "1", "--d_t_goal",
+                  "2", "--v_goal_min", "1", "--v_goal_max", "5", "--d_v_goal",
+                  "4", "--beta_min", "-0.2", "--beta_max", "0.2", "--d_beta",
+                  "0.4", "--angv_z_min", "-1", "--angv_z_max", "1",
+                  "--d_angv_z", "2")
+CART_TEST_TIERS = dict(phase1_iters=3, gn_iters=8, al_outer=2,
+                       resolve_factor=2)
+
+
+def cart_chain_golden():
+    """See the module docstring (``cart_chain_golden.npz``)."""
+    from irbfn_tpu.solvers import cartesian_config, solve_cartesian_point
+
+    vals = dict(zip(CART_TEST_ARGS[::2], CART_TEST_ARGS[1::2]))
+    dims = ("v_car", "x_goal", "y_goal", "t_goal", "v_goal", "beta",
+            "angv_z")
+    grid = []
+    for d in dims:
+        lo, hi = float(vals[f"--{d}_min"]), float(vals[f"--{d}_max"])
+        num = int(round((hi - lo) / float(vals[f"--d_{d}"]))) + 1
+        grid.append(GridSpec(d, lo, hi, num))
+    rows = build_lattice(tuple(grid), dtype=np.float64)
+    tiers = CART_TEST_TIERS
+    cfgs = {"cheap": cartesian_config(gn_iters=tiers["phase1_iters"],
+                                      al_outer=tiers["al_outer"]),
+            "full": cartesian_config(gn_iters=tiers["gn_iters"],
+                                     al_outer=tiers["al_outer"]),
+            "hard": cartesian_config(
+                gn_iters=tiers["gn_iters"] * tiers["resolve_factor"],
+                al_outer=tiers["al_outer"] + 2)}
+    out = {"rows": rows}
+    params = f1tenth_params(dtype=jnp.float64)
+    for name, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        sol = solve_cartesian_point(jnp.asarray(rows), params, cfg)
+        out.update({f"{name}_accel": np.asarray(sol.accel),
+                    f"{name}_steer_vel": np.asarray(sol.steer_vel),
+                    f"{name}_feasible": np.asarray(sol.feasible),
+                    f"{name}_kkt": np.asarray(sol.kkt_residual)})
+        print(f"cartesian {name} pass on {len(rows)} rows: "
+              f"{np.asarray(sol.feasible).mean():.3f} feasible "
+              f"({time.perf_counter() - t0:.0f} s)", flush=True)
+    return out
 
 
 N_RAYS = 1024
@@ -837,6 +998,7 @@ def map_golden(out_dir):
 
 GOLDENS = {"goal_mpc_pr": (goal_golden, "goal_mpc_golden.npz")}
 GOLDENS["cart_c1_pr"] = (cart_golden, "cart_c1_pr_golden.npz")
+GOLDENS["clothoid_pr"] = (clothoid_golden, "clothoid_golden.npz")
 
 
 def main():
@@ -863,6 +1025,15 @@ def main():
                     help="compare the tiered generator's cheap-pass "
                          "certificate flags of the two packages on seeded "
                          "lattice rows (prints; writes nothing) and stop")
+    ap.add_argument("--out", default=None,
+                    help="with --cheap_pass_check: write the JAX side as a "
+                         "golden to this path")
+    ap.add_argument("--clothoid_golden", action="store_true",
+                    help="write clothoid_pr and clothoid_golden.npz, and "
+                         "stop")
+    ap.add_argument("--cart_chain_golden", action="store_true",
+                    help="write cart_chain_golden.npz (reads no "
+                         "checkpoint) and stop")
     ap.add_argument("--nudge", type=float, default=0.0,
                     help="with --bank_golden: scale the start states by "
                          "(1 + nudge) and compare with the committed golden "
@@ -871,8 +1042,10 @@ def main():
     args = ap.parse_args()
     os.makedirs(args.out_dir, exist_ok=True)
     if args.cheap_pass_check:
-        cheap_pass_check()
+        cheap_pass_check(args.out)
         return
+    if args.clothoid_golden:
+        args.run, args.golden = "clothoid_pr", True
     if args.bank_golden and args.nudge:
         out = bank_golden(args.out_dir, args.nudge)
         with np.load(os.path.join(args.out_dir, "bank6_golden.npz")) as z:
@@ -892,10 +1065,13 @@ def main():
               f"{np.percentile(d_g, 90):.2e}", flush=True)
         return
     for flag, fn, name in (("nmpc_golden", nmpc_golden, "nmpc_golden.npz"),
+                           ("cart_chain_golden", cart_chain_golden,
+                            "cart_chain_golden.npz"),
                            ("bank_golden", bank_golden, "bank6_golden.npz"),
                            ("map_golden", map_golden, "map_golden.npz")):
         if getattr(args, flag):
-            out = fn() if flag == "nmpc_golden" else fn(args.out_dir)
+            out = (fn() if flag in ("nmpc_golden", "cart_chain_golden")
+                   else fn(args.out_dir))
             np.savez_compressed(os.path.join(args.out_dir, name), **out)
             print(f"wrote {name}")
             return

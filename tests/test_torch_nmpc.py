@@ -390,6 +390,63 @@ def test_solve_spd_flags_only_the_bad_rows():
                                    atol=1e-9)
 
 
+def test_solve_spd_is_the_jax_package_s_unrolled_cholesky():
+    """The same column order and pivots as ``_solve_spd_unrolled``: equal to
+    rounding in f64, and a pivot refused (a non-finite step) in the same
+    rows, those of an indefinite or a singular matrix among them."""
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(64, 10, 10))
+    A = a @ a.transpose(0, 2, 1) + 1e-3 * np.eye(10)
+    A[:8] -= 2.0 * np.eye(10)  # some indefinite
+    A[8] = np.outer(a[8, 0], a[8, 0])  # rank one: a zero pivot
+    b = rng.normal(size=(64, 10))
+    want = np.asarray(jax.vmap(J._solve_spd_unrolled)(jnp.asarray(A),
+                                                      jnp.asarray(b)))
+    got = T._solve_spd(t64(A), t64(b)).numpy()
+    ok = np.isfinite(want).all(axis=1)
+    np.testing.assert_array_equal(np.isfinite(got).all(axis=1), ok)
+    assert 0 < ok.sum() < 64
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-10, atol=1e-12)
+
+
+CHEAP_GOLDEN = (Path(__file__).parents[1] / "irbfn_tpu_torch" / "assets"
+                / "cheap_pass_golden.npz")
+# the cheap pass in f32 at the 39-row shape: flags that may differ from the
+# JAX package's. Measured (scripts/export_torch_ckpt.py --cheap_pass_check):
+# near its 12-iteration cap the f32 iteration of a few percent of the rows
+# is decided by rounding (a line-search candidate that ties the current
+# objective in f32 is taken or refused); the JAX package against itself
+# differs on 1 of these 39 rows when solved in another batch, and on 9 of
+# the 312 (2.9%) when its iteration is written as a Python loop; the port
+# differs on 3 of the 39.
+TOL_CHEAP_FLAGS = 4
+
+
+def test_cheap_pass_f32_at_39_rows_matches_jax():
+    """The tiered generator's cheap pass (12 Newton iterations) on the 39
+    rows of ``cheap_pass_golden.npz``, among them the seven whose f32 flags
+    parted from the JAX package's in the 312-row check: in f32 the port
+    certifies at least as many rows as the JAX package less one, and its
+    flags differ on at most ``TOL_CHEAP_FLAGS``; in f64 every flag is the
+    JAX package's."""
+    with np.load(CHEAP_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    idx = g["test_idx"]
+    assert {20, 66, 67, 102, 128, 161, 175} <= set(idx.tolist())
+    assert idx.size == 39
+    cfg = T.NMPCConfig(gn_iters=12)
+    rows = g["rows"][idx]
+    sol = T.solve_lattice_point(
+        torch.as_tensor(rows, dtype=torch.float32),
+        fullscale_params(dtype=torch.float32, device="cpu"), cfg)
+    flags, want = sol.feasible.numpy(), g["test_flags_f32"]
+    assert flags.sum() >= want.sum() - 1, (flags.sum(), want.sum())
+    assert (flags != want).sum() <= TOL_CHEAP_FLAGS, idx[flags != want]
+    sol64 = T.solve_lattice_point(t64(rows), tp64(), cfg)
+    np.testing.assert_array_equal(sol64.feasible.numpy(),
+                                  g["flags_f64"][idx])
+
+
 @pytest.mark.parametrize("case", ["nan_at_best", "all_nan_step", "nan_f_old"])
 def test_line_search_rejects_nan_and_inf(case):
     """What JAX's argmin/minimum/< do with NaN and inf: a NaN objective at
