@@ -20,13 +20,16 @@ names:
   goal-MPC and Frenet NMPC table generators.
 - ``irbfn_tpu_torch.planning`` — ``IRBFNFrenetPlanner``, ``NMPCPlanner``,
   ``GoalMPCPlanner``, the explicit table planners, the EXP3 bandit.
-- ``irbfn_tpu_torch.sim``      — track, Frenet frame, ``TrackEnv``, and the
-  closed-loop robustness sweep (``python -m ...sim.eval_closed_loop``).
-- ``irbfn_tpu_torch.solvers``  — the goal-MPC condensed box QP, the batched
-  AL/Newton NMPC solver and its SLSQP oracle.
+- ``irbfn_tpu_torch.sim``      — track, Frenet frame, ``TrackEnv``, maps,
+  lidar, multi-agent racing, figures (``sim.render``), the closed-loop
+  robustness sweep (``python -m ...sim.eval_closed_loop``) and the demos.
+- ``irbfn_tpu_torch.solvers``  — the goal-MPC condensed box QP and the LTV
+  tracker, batched ADMM QPs and the linear MPC, the batched AL/Newton NMPC
+  solver and its SLSQP oracle, the clothoid solver.
 - ``irbfn_tpu_torch.train``    — losses, the trainer, checkpoints as JSON +
-  numpy files, clustering, and the ``python -m`` entry points
-  ``train_goal_mpc``, ``eval_goal_mpc``, ``train_frenet``, ``eval_offline``.
+  numpy files, clustering, PPO, and the ``python -m`` entry points
+  (``train_goal_mpc``, ``train_frenet``, ``quadrotor_pipeline``,
+  ``train_ppo`` and others).
 - ``irbfn_tpu_torch.utils``    — flag groups, the metric logger, profiling.
 
 Float32 matrix products run in full f32 wherever the port runs: the

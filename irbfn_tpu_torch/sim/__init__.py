@@ -1,5 +1,6 @@
 """Simulator layer: track, Frenet frame, occupancy maps and lidar, closed-loop
-env."""
+env, multi-agent racing. ``sim.render`` (matplotlib) is not imported here:
+import it where a figure is drawn."""
 
 from irbfn_tpu_torch.sim.env import (
     Observation,
@@ -8,6 +9,12 @@ from irbfn_tpu_torch.sim.env import (
     TrackEnv,
     deviation_metrics,
     observation_factory,
+)
+from irbfn_tpu_torch.sim import lidar
+from irbfn_tpu_torch.sim.multi_agent import (
+    MultiAgentEnv,
+    MultiAgentState,
+    pairwise_collisions,
 )
 from irbfn_tpu_torch.sim.map import (
     OccupancyMap,
@@ -47,7 +54,8 @@ from irbfn_tpu_torch.sim.track import (
 
 __all__ = [
     "Observation", "SimState", "StepRecord", "TrackEnv", "deviation_metrics",
-    "observation_factory",
+    "observation_factory", "lidar", "MultiAgentEnv", "MultiAgentState",
+    "pairwise_collisions",
     "OccupancyMap", "ScanSpec", "distance_at", "footprint_clearance",
     "from_bitmap", "load_map_yaml", "load_track_bundle", "map_clearance",
     "raceline_from_csv", "rasterize_track", "save_map_yaml", "trace_rays",

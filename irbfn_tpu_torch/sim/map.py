@@ -88,16 +88,23 @@ def distance_at(omap: OccupancyMap, x, y):
     return torch.where(inside, out, torch.zeros_like(out))
 
 
-def beam_angles(spec: ScanSpec, dtype, device) -> torch.Tensor:
-    """The scan's beam angles, ``linspace(-fov/2, fov/2, n_beams)`` as the
-    JAX package computes it: start * (1 - i/n) + stop * i/n, then stop."""
-    n = spec.n_beams - 1
-    lo = torch.tensor(-spec.fov / 2, dtype=dtype, device=device)
-    hi = torch.tensor(spec.fov / 2, dtype=dtype, device=device)
+def linspace(start: float, stop: float, num: int, dtype,
+             device) -> torch.Tensor:
+    """``linspace(start, stop, num)`` as the JAX package computes it:
+    start * (1 - i/n) + stop * i/n, then stop (torch's own differs in the
+    last place)."""
+    n = num - 1
+    lo = torch.tensor(start, dtype=dtype, device=device)
+    hi = torch.tensor(stop, dtype=dtype, device=device)
     if n == 0:
         return lo[None]
     step = torch.arange(n, dtype=dtype, device=device) / n
     return torch.cat([lo * (1 - step) + hi * step, hi[None]])
+
+
+def beam_angles(spec: ScanSpec, dtype, device) -> torch.Tensor:
+    """The scan's beam angles, ``linspace(-fov/2, fov/2, n_beams)``."""
+    return linspace(-spec.fov / 2, spec.fov / 2, spec.n_beams, dtype, device)
 
 
 def trace_rays(omap: OccupancyMap, x, y, theta, spec: ScanSpec = ScanSpec()):

@@ -1,7 +1,7 @@
 """Goal-reaching kinematic MPC as a condensed box QP, batched over families.
 
-Port of ``irbfn_tpu/solvers/goal_mpc.py`` (the goal family, the row solve
-and the one-card lattice solve). Per problem: state [x, y, v, yaw] over T
+Port of ``irbfn_tpu/solvers/goal_mpc.py`` (the goal family, the row solve,
+the one-card lattice solve and the LTV tracking MPC). Per problem: state [x, y, v, yaw] over T
 steps, controls [accel, steer] over T steps, dynamics linearised at
 (v = v_car, yaw = 0, steer = 0), a quadratic goal-tracking cost with control
 and control-difference penalties, and boxed steering, acceleration, speed
@@ -18,6 +18,10 @@ in exact f32 (lower-precision passes stall ADMM at r_prim ~1e-2).
 
 Outputs follow the reference ABI: speed = v_car + a_0 dt, steer = delta_0;
 goals are ordered (x_g, y_g, v_g, t_g), the state layout.
+
+``solve_tracking_mpc`` is the waypoint tracker: per-step linearisations
+along a predicted path, so every row is its own family (F = rows, G = 1),
+and its sweeps are the same ``admm_solve`` launch.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from irbfn_tpu_torch._device import resolve_device
 from irbfn_tpu_torch.ops.admm import admm_solve
+from irbfn_tpu_torch.solvers.qp import _mv
 
 
 class GoalMPCConfig(NamedTuple):
@@ -286,3 +291,128 @@ def solve_goal_lattice(v_car, goals, cfg: GoalMPCConfig = GoalMPCConfig(),
 
     return solve_lattice(fn, goals, batch_per_device=batch_per_device,
                          args=(float(v_car),), device=device)
+
+
+def solve_tracking_mpc(x0, ref_traj, path_predict,
+                       cfg: GoalMPCConfig = GoalMPCConfig(),
+                       iters: int = 600, sigma: float = 1e-6,
+                       tol: float = 2e-3, device=None) -> GoalMPCSolution:
+    """LTV trajectory-tracking kinematic MPC, batched over rows.
+
+    Per-step linearisation at (v_t, phi_t) from ``path_predict`` with the
+    affine C term, per-step references from ``ref_traj``, the goal family's
+    cost and constraints except the velocity box [0, max_speed] (the
+    tracker never reverses).
+
+    Args:
+        x0: (..., 4) initial state [x, y, v, yaw].
+        ref_traj: (..., T+1, 4) reference states (row 0 is dropped: it is a
+            constant with respect to the controls).
+        path_predict: (..., T, 4) operating points; only v (column 2) and
+            yaw (column 3) enter the model matrices.
+    Returns:
+        GoalMPCSolution (speed/steer first-step ABI and the control plan).
+
+    The condensation, one 16x16 KKT inverse per row and the row
+    normalisation are batched over the leading axes; the sweeps are one
+    ``admm_solve`` launch with one family per row (rho = 1).
+    """
+    x0 = _as_input(x0, device)
+    ref_traj = torch.as_tensor(ref_traj, dtype=x0.dtype, device=x0.device)
+    path_predict = torch.as_tensor(path_predict, dtype=x0.dtype,
+                                   device=x0.device)
+    batch = x0.shape[:-1]
+    x, r_prim, r_dual = admm_solve(
+        *_tracking_operands(x0, ref_traj, path_predict, cfg, sigma),
+        iters=iters, sigma=sigma)
+    r_prim, r_dual = r_prim.reshape(batch), r_dual.reshape(batch)
+    converged = (r_prim < tol) & (r_dual < tol)
+    controls = x.reshape(batch + (cfg.horizon, 2))
+    speed = x0[..., 2] + controls[..., 0, 0] * cfg.dt
+    steer = controls[..., 0, 1]
+    return GoalMPCSolution(speed, steer, controls, r_prim, r_dual, converged)
+
+
+def _tracking_operands(x0, ref_traj, path_predict, cfg: GoalMPCConfig,
+                       sigma: float):
+    """The tracker's ADMM operands, one family per row of the flattened
+    batch: (q (F, 1, n), A (F, m, n), kinv (F, n, n), lo (F, m), hi (F, m),
+    rho (F,)), contiguous, in ``x0``'s dtype and device."""
+    dtype, dev = x0.dtype, x0.device
+    c = _constants(cfg, dtype, dev)
+    T, nx, nu = cfg.horizon, 4, 2
+    n = T * nu
+    batch = x0.shape[:-1]
+    dt = c["dt"]
+    wb = cfg.wheelbase
+
+    def model_mats(v, phi):
+        """The model matrices at steer 0, batched."""
+        z, o = torch.zeros_like(v), torch.ones_like(v)
+        co, si = torch.cos(phi), torch.sin(phi)
+        A = torch.stack([
+            torch.stack([o, z, dt * co, -dt * v * si], -1),
+            torch.stack([z, o, dt * si, dt * v * co], -1),
+            torch.stack([z, z, o, z], -1),
+            torch.stack([z, z, z, o], -1)], -2)  # (..., 4, 4)
+        B = torch.stack([
+            torch.stack([z, z], -1), torch.stack([z, z], -1),
+            torch.stack([dt * o, z], -1),
+            torch.stack([z, dt * v / wb], -1)], -2)  # (..., 4, 2)
+        C = torch.stack([dt * v * si * phi, -dt * v * co * phi, z, z], -1)
+        return A, B, C
+
+    mats = [model_mats(path_predict[..., t, 2], path_predict[..., t, 3])
+            for t in range(T)]
+
+    # condense: x_k = Phi_k x0 + sum_j Phi_{k-1..j+1} (B_j u_j + C_j)
+    blocks = [[None] * T for _ in range(T)]  # [k][j]
+    x_aff = []
+    phi_x = x0
+    for k in range(T):
+        A_k, B_k, C_k = mats[k]
+        phi_x = _mv(A_k, phi_x) + C_k
+        x_aff.append(phi_x)
+        for j in range(k):
+            blocks[k][j] = A_k @ blocks[k - 1][j]
+        blocks[k][k] = B_k
+    zero = torch.zeros(batch + (nx, nu), dtype=dtype, device=dev)
+    Su = torch.cat([torch.cat([blocks[k][j] if j <= k else zero
+                               for j in range(T)], dim=-1)
+                    for k in range(T)], dim=-2)  # (..., T*nx, n)
+    x_free = torch.cat(x_aff, dim=-1)  # (..., T*nx)
+
+    qw, D = c["qw"], c["D"]
+    ref_flat = ref_traj[..., 1:, :].reshape(batch + (T * nx,))
+    q = ((qw * (x_free - ref_flat))[..., None, :] @ Su)[..., 0, :]
+    P = (Su.transpose(-1, -2) @ (qw[:, None] * Su) + torch.diag(c["r_diag"])
+         + D.T @ (c["rd_diag"][:, None] * D))
+
+    vel_rows = c["vel_sel"] @ Su  # (..., T, n)
+    A_con = torch.cat([c["eye_u"].expand(batch + (n, n)),
+                       c["steer_rows"].expand(batch + (T - 1, n)), vel_rows],
+                      dim=-2)  # (..., m, n)
+    # the tracker's velocity box [0, max_speed] on the velocity state: the
+    # bounds shift by the free rollout's velocities
+    v_aff = _mv(c["vel_sel"], x_free)  # (..., T)
+    lo = torch.cat([c["u_lo"].expand(batch + (n,)),
+                    (-c["d_bound"]).expand(batch + (T - 1,)), -v_aff],
+                   dim=-1)
+    hi = torch.cat([c["u_hi"].expand(batch + (n,)),
+                    c["d_bound"].expand(batch + (T - 1,)),
+                    cfg.max_speed - v_aff], dim=-1)
+    row_norm = torch.sqrt(torch.sum(A_con * A_con, dim=-1))
+    A_con = A_con / row_norm[..., None]
+    lo = lo / row_norm
+    hi = hi / row_norm
+
+    rho = 1.0
+    kinv = torch.linalg.inv(P + sigma * c["eye_u"]
+                            + rho * (A_con.transpose(-1, -2) @ A_con))
+    m = A_con.shape[-2]
+    F = int(np.prod(batch, dtype=np.int64))
+    return (q.reshape(F, 1, n).contiguous(),
+            A_con.reshape(F, m, n).contiguous(),
+            kinv.reshape(F, n, n).contiguous(), lo.reshape(F, m).contiguous(),
+            hi.reshape(F, m).contiguous(),
+            torch.full((F,), rho, dtype=dtype, device=dev))

@@ -2,7 +2,8 @@
 constraint-pattern clustering. The entry points are modules of this package
 run with ``python -m``: ``train_goal_mpc``, ``eval_goal_mpc``,
 ``train_frenet``, ``eval_offline``, ``train_cartesian``,
-``train_clothoid``, ``eval_lut_accuracy`` and ``cluster_constraints``."""
+``train_clothoid``, ``eval_lut_accuracy``, ``cluster_constraints``,
+``quadrotor_pipeline`` and ``train_ppo`` (PPO itself: ``train.ppo``)."""
 
 from irbfn_tpu_torch.train.checkpoints import (
     checkpoint_steps,

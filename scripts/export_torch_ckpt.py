@@ -119,6 +119,38 @@ the npz layout). Writes to ``irbfn_tpu_torch/assets/``:
   a tiered table made with ``CART_TEST_TIERS`` (``{cheap,full,hard}_*``:
   accel, steer_vel, feasible, kkt).
 
+- with ``--quadrotor_golden``, ``quadrotor_pr.{npz,json}`` and
+  ``quadrotor_pr_golden.npz``: ``lat_controls_f32`` / ``lat_converged_f32``
+  / ``lat_iterations_f32``, the JAX f32 linear-MPC solve of the default
+  lattice (9^4 grid + 32,768 near-origin rows, the script's); ``off_x``
+  (the script's 4,096 off-grid states) with ``off_forward_f64``, the net's
+  f64 forward on them; ``ring_starts`` (the 64-start ring) with
+  ``ring_net_f32`` / ``ring_mpc_f32`` (80, 64, 4), the script's two f32
+  regulation loops with the committed net; ``cut_*``, the JAX script's own
+  run at ``QUAD_CUT_ARGS`` (its results and table), and ``script_*``, its
+  run at the defaults (results).
+- with ``--tracking_golden``, ``tracking_golden.npz``: 1,000 seeded curving
+  references (``x0``, ``ref``, ``pp``; ``tracking_rows``) and the JAX
+  ``solve_tracking_mpc`` solutions in f64 and f32.
+- with ``--sim_golden``, ``sim_golden.npz``: ``lidar_points`` (the oval's
+  raceline decimated by 4), ``lidar_pose`` (1,000 seeded poses in the
+  corridor) and ``lidar_f32`` / ``lidar_f64`` (the JAX ``scan``); ``ma_x``
+  (1,000 seeded batches of 4 cars), ``ma_margin_rect`` (each pair's
+  distance from a SAT tie, f64), and the JAX ``ray_cast_footprints`` scans
+  and both collision models' flags in f32 and f64.
+- with ``--overtake_golden``, ``overtake_golden.npz``: the overtake demo's
+  rollout by the JAX package (its control law as the script assembles it,
+  ``overtake_control``) in both modes, f32: the first 30 steps' states,
+  arc lengths, actions and collision flags, and all 300 steps' arc lengths
+  and flags (the outcome).
+- with ``--ppo_golden``, ``ppo_golden.npz``: one JAX PPO update at
+  ``train_ppo``'s defaults and one at ``PPO_SMALL`` (prefix ``small_``):
+  the initial and updated parameters, the metrics, and every random draw
+  in order.
+- with ``--demo_golden``, ``demo_golden.npz``: what
+  ``scripts/demo_closed_loop.py`` prints at its defaults for ``pursuit``,
+  ``goal_mpc`` and ``irbfn`` (laps, progress, mean |ey| and |epsi|).
+
 Usage (from the repo root):
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --nmpc_golden   # ~6 min
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --run frenet_wide_pr1 --golden
@@ -132,6 +164,9 @@ Usage (from the repo root):
         --out irbfn_tpu_torch/assets/cheap_pass_golden.npz  # ~5 min
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --clothoid_golden
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --cart_chain_golden
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --quadrotor_golden  # ~1 min
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --tracking_golden   # or --sim,
+        # --overtake, --ppo, --demo_golden: 15-60 s each
 """
 
 import argparse
@@ -996,9 +1031,443 @@ def map_golden(out_dir):
     return out
 
 
+# ------------------------------------------- the linear-MPC family and the sim
+
+QUAD_CUT_ARGS = ("--n_grid", "3", "--n_extra", "512", "--num_k", "16")
+
+
+def quad_script_run(argv=()):
+    """The JAX script ``scripts/quadrotor_pipeline.py`` itself with
+    ``argv``, run in a temporary directory (it writes ``configs/``,
+    ``ckpts/`` and ``data/`` under its working directory): its results
+    JSON and its table."""
+    import runpy
+    import tempfile
+
+    script = os.path.abspath(os.path.join("scripts", "quadrotor_pipeline.py"))
+    cwd, old_argv = os.getcwd(), sys.argv
+    with tempfile.TemporaryDirectory() as d:
+        for sub in ("configs", "ckpts", "data"):
+            os.makedirs(os.path.join(d, sub))
+        sys.argv = ["quadrotor_pipeline.py", *argv, "--save_path",
+                    os.path.join(d, "data")]
+        os.chdir(d)
+        try:
+            with jax.enable_x64(False):
+                runpy.run_path(script, run_name="__main__")
+        finally:
+            os.chdir(cwd)
+            sys.argv = old_argv
+        with open(os.path.join(d, "data", "quadrotor_results.json")) as f:
+            res = json.load(f)
+        with np.load(os.path.join(d, "data", "quadrotor_table.npz")) as z:
+            table = {k: z[k] for k in z.files}
+    return res, table
+
+
+def quadrotor_golden(model, variables, config):
+    """See the module docstring (``quadrotor_pr_golden.npz``)."""
+    from irbfn_tpu.solvers.qp import (double_integrator_mpc,
+                                      solve_linear_mpc_batch)
+    from irbfn_tpu_torch.train.quadrotor_pipeline import eval_states, lattice
+
+    _, x0 = lattice(9, 32768)
+    x_test, starts = eval_states(4096, 64)
+    out = {"ring_starts": starts, "off_x": x_test}
+    v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                       {"params": variables["params"]})
+    out["off_forward_f64"] = np.asarray(model.apply(
+        v64, jnp.asarray(x_test, jnp.float64)))
+    with jax.enable_x64(False):
+        mpc = double_integrator_mpc(horizon=10)
+        t0 = time.perf_counter()
+        ctrl, sol = solve_linear_mpc_batch(
+            mpc, jnp.asarray(x0), jnp.zeros((x0.shape[0], 4), jnp.float32))
+        out.update(lat_controls_f32=np.asarray(ctrl[:, 0]),
+                   lat_converged_f32=np.asarray(sol.converged),
+                   lat_iterations_f32=np.asarray(sol.iterations, np.int16))
+        print(f"quadrotor lattice: {x0.shape[0]:,} QPs in "
+              f"{time.perf_counter() - t0:.1f} s (JAX f32, CPU), "
+              f"{float(np.asarray(sol.converged).mean()):.4f} converged",
+              flush=True)
+        v32 = _f32(variables)
+        goal0 = jnp.zeros((starts.shape[0], 4), jnp.float32)
+
+        @jax.jit
+        def roll_net(x):
+            def body(x, _):
+                u = jnp.clip(model.apply(v32, x), mpc.u_lo, mpc.u_hi)
+                x = x @ mpc.Ad.T + u @ mpc.Bd.T
+                return x, x
+            return jax.lax.scan(body, x, None, length=80)[1]
+
+        @jax.jit
+        def roll_mpc(x):
+            def body(x, _):
+                u = solve_linear_mpc_batch(mpc, x, goal0, iters=400)[0][:, 0]
+                x = x @ mpc.Ad.T + u @ mpc.Bd.T
+                return x, x
+            return jax.lax.scan(body, x, None, length=80)[1]
+
+        out["ring_net_f32"] = np.asarray(roll_net(jnp.asarray(starts)))
+        out["ring_mpc_f32"] = np.asarray(roll_mpc(jnp.asarray(starts)))
+    res, table = quad_script_run(QUAD_CUT_ARGS)
+    out.update({f"cut_{k}": np.float64(v) for k, v in res.items()})
+    out.update(cut_inputs=table["inputs"], cut_controls=table["outputs"])
+    res, _ = quad_script_run()
+    out.update({f"script_{k}": np.float64(v) for k, v in res.items()})
+    return out
+
+
+N_TRACK = 1000
+TRACK_DT = 0.05  # GoalMPCConfig.dt
+
+
+def tracking_rows(rng, n: int, T: int = 8):
+    """Seeded curving references for the LTV tracker: (x0 (n, 4), ref (n,
+    T+1, 4), path_predict (n, T, 4)), the construction of
+    ``tests/test_goal_mpc.py:test_tracking_mpc_matches_slsqp_oracle``
+    batched."""
+    v0 = rng.uniform(0.5, 6.0, n)
+    x0 = np.stack([np.zeros(n), np.zeros(n), v0,
+                   rng.uniform(-0.4, 0.4, n)], axis=-1)
+    phis = x0[:, 3:4] + np.cumsum(rng.uniform(-0.15, 0.15, (n, T)), axis=1)
+    vs = np.clip(v0[:, None] + np.cumsum(rng.uniform(-0.3, 0.3, (n, T)),
+                                         axis=1), 0.2, 8.0)
+    pp = np.zeros((n, T, 4))
+    pp[..., 2], pp[..., 3] = vs, phis
+    ref = np.zeros((n, T + 1, 4))
+    zero = np.zeros((n, 1))
+    ref[..., 0] = np.cumsum(np.concatenate(
+        [zero, vs * TRACK_DT * np.cos(phis)], axis=1), axis=1)
+    ref[..., 1] = np.cumsum(np.concatenate(
+        [zero, vs * TRACK_DT * np.sin(phis)], axis=1), axis=1)
+    ref[..., 2] = np.concatenate([v0[:, None], vs], axis=1)
+    ref[..., 3] = np.concatenate([x0[:, 3:4], phis], axis=1)
+    return x0, ref, pp
+
+
+def tracking_golden():
+    """See the module docstring (``tracking_golden.npz``)."""
+    from irbfn_tpu.solvers.goal_mpc import solve_tracking_mpc
+
+    x0, ref, pp = tracking_rows(np.random.default_rng(0), N_TRACK)
+    out = {"x0": x0, "ref": ref, "pp": pp}
+    for suffix, x64, dt in (("f64", True, jnp.float64),
+                            ("f32", False, jnp.float32)):
+        with jax.enable_x64(x64):
+            sol = solve_tracking_mpc(*(jnp.asarray(a, dt)
+                                       for a in (x0, ref, pp)))
+            out.update(_solutions(sol, suffix))
+    print(f"tracking MPC: {N_TRACK} rows, converged f64 "
+          f"{out['converged_f64'].mean():.3f}, f32 "
+          f"{out['converged_f32'].mean():.3f}", flush=True)
+    return out
+
+
+N_SCAN = 1000
+N_MA, MA_AGENTS, MA_BEAMS = 1000, 4, 64
+
+
+def sat_margin(x):
+    """Per ordered pair of agents (..., A, A): the separating-axis test's
+    distance from a tie, in f64 numpy. Negative: separated by that much
+    along the best axis; positive: overlapping by that much on the worst.
+    A rect flag is decided away from a tie where |margin| is large."""
+    x = np.asarray(x, np.float64)
+    c, th = x[..., :2], x[..., 4]
+    half = np.array([0.58 / 2.0, 0.31 / 2.0])
+
+    def axes(t):
+        co, si = np.cos(t), np.sin(t)
+        return np.stack([np.stack([co, si], -1), np.stack([-si, co], -1)],
+                        axis=-2)
+
+    a1 = np.broadcast_to(axes(th)[..., :, None, :, :],
+                         th.shape + th.shape[-1:] + (2, 2))
+    a2 = np.broadcast_to(axes(th)[..., None, :, :, :], a1.shape)
+    ax = np.concatenate([a1, a2], axis=-2)  # (..., A, A, 4, 2)
+    d = (c[..., None, :, :] - c[..., :, None, :])[..., None, :]
+    dist = np.abs(np.sum(ax * d, axis=-1))
+    r1 = np.sum(half * np.abs(np.einsum("...kd,...jd->...kj", ax, a1)), -1)
+    r2 = np.sum(half * np.abs(np.einsum("...kd,...jd->...kj", ax, a2)), -1)
+    return np.min(r1 + r2 - dist, axis=-1)
+
+
+def sim_golden():
+    """See the module docstring (``sim_golden.npz``)."""
+    from irbfn_tpu.sim.lidar import scan
+    from irbfn_tpu.sim.multi_agent import (pairwise_collisions,
+                                           ray_cast_footprints)
+
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
+    pts = np.asarray(track.raceline.points)[::4]  # make_scanner's decimate
+    rng = np.random.default_rng(0)
+    s = rng.uniform(0.0, float(track.raceline.length), N_SCAN)
+    x, y, th = track.frenet_to_cartesian(
+        jnp.asarray(s), jnp.asarray(rng.uniform(-1.8, 1.8, N_SCAN)),
+        jnp.asarray(rng.uniform(-np.pi, np.pi, N_SCAN)))
+    pose = np.stack([np.asarray(x), np.asarray(y), np.asarray(th)],
+                    -1).astype(np.float32)
+    out = {"lidar_points": pts, "lidar_pose": pose}
+    # the multi-agent batch: four cars scattered around a point, some
+    # overlapping, every heading
+    ma = np.zeros((N_MA, MA_AGENTS, 7))
+    ma[..., :2] = (rng.uniform(-10, 10, (N_MA, 1, 2))
+                   + rng.normal(0.0, 0.5, (N_MA, MA_AGENTS, 2)))
+    ma[..., 2] = rng.uniform(-0.4, 0.4, (N_MA, MA_AGENTS))
+    ma[..., 3] = rng.uniform(0.0, 5.0, (N_MA, MA_AGENTS))
+    ma[..., 4] = rng.uniform(-np.pi, np.pi, (N_MA, MA_AGENTS))
+    ma = ma.astype(np.float32)
+    out["ma_x"] = ma
+    out["ma_margin_rect"] = sat_margin(ma)
+    for suffix, x64, dt in (("f32", False, jnp.float32),
+                            ("f64", True, jnp.float64)):
+        with jax.enable_x64(x64):
+            out[f"lidar_{suffix}"] = np.asarray(scan(
+                jnp.asarray(pts, dt), 2.0,
+                *(jnp.asarray(pose[:, i], dt) for i in range(3))))
+            xj = jnp.asarray(ma, dt)
+            angles = jnp.linspace(-4.7 / 2, 4.7 / 2, MA_BEAMS,
+                                  dtype=jnp.float32)
+            base = jnp.full((N_MA, MA_AGENTS, MA_BEAMS), 30.0, dt)
+            out[f"ma_scan_{suffix}"] = np.asarray(
+                ray_cast_footprints(xj, base, angles))
+            p = f1tenth_params(dtype=dt)
+            for model in ("rect", "discs"):
+                out[f"ma_{model}_{suffix}"] = np.asarray(
+                    pairwise_collisions(xj, p, collision_model=model))
+    return out
+
+
+def overtake_control(args, track, params, goals, scan_spec=None):
+    """``scripts/demo_overtake.py``'s control law, ``control(x, s, scan)``,
+    assembled from the JAX package's functions as the script does."""
+    from irbfn_tpu.planning.lattice import plan_lattice
+    from irbfn_tpu.sim.safety import pid_lowlevel
+    from irbfn_tpu.sim.track import frenet_to_cartesian, interp_wrapped
+    from irbfn_tpu.solvers.clothoid import solve_g1_lattice
+
+    rl = track.raceline
+    wheelbase = float(params.lf + params.lr)
+    if scan_spec is not None:
+        scan_angles = jnp.linspace(-scan_spec.fov / 2, scan_spec.fov / 2,
+                                   scan_spec.n_beams, dtype=jnp.float32)
+
+    def to_local(psi, dx, dy):
+        c, s = jnp.cos(psi), jnp.sin(psi)
+        return c * dx + s * dy, -s * dx + c * dy
+
+    def pursuit(px, py, psi, v, s, lookahead, speed_scale):
+        s_t = s + lookahead
+        tx, ty, _ = frenet_to_cartesian(rl, s_t, jnp.zeros_like(s_t),
+                                        jnp.zeros_like(s_t))
+        lx, ly = to_local(psi, tx - px, ty - py)
+        kappa = 2.0 * ly / jnp.maximum(lx * lx + ly * ly, 1e-3)
+        steer = jnp.arctan(wheelbase * kappa)
+        v_goal = interp_wrapped(rl.ss, rl.vxs, s_t, rl.length) * speed_scale
+        return steer, v_goal
+
+    def control(x, s_agents, scan=None):
+        px, py, delta, v, psi = (x[:, 0], x[:, 1], x[:, 2], x[:, 3],
+                                 x[:, 4])
+        la_lead = jnp.maximum(0.6 * v[1], 1.5)
+        steer_l, v_l = pursuit(px[1], py[1], psi[1], v[1], s_agents[1],
+                               la_lead, args.lead_speed_scale)
+        s_t = s_agents[0] + args.lookahead
+        tx, ty, _ = frenet_to_cartesian(rl, s_t, jnp.zeros(()),
+                                        jnp.zeros(()))
+        target = jnp.stack(to_local(psi[0], tx - px[0], ty - py[0]))
+        if args.from_scan:
+            r = scan[0]
+            hit = r < scan_spec.max_range * 0.99
+            pts = jnp.stack([r * jnp.cos(scan_angles),
+                             r * jnp.sin(scan_angles)], axis=-1)
+            obstacles = jnp.where(hit[:, None], pts, 1e6)
+        else:
+            heading_l = jnp.stack([jnp.cos(psi[1]), jnp.sin(psi[1])])
+            opp = px[1], py[1]
+            discs = jnp.stack([
+                jnp.stack([opp[0] + params.lf * heading_l[0],
+                           opp[1] + params.lf * heading_l[1]]),
+                jnp.stack([opp[0] - params.lr * heading_l[0],
+                           opp[1] - params.lr * heading_l[1]])])
+            ox, oy = to_local(psi[0], discs[:, 0] - px[0],
+                              discs[:, 1] - py[0])
+            obstacles = jnp.stack([ox, oy], axis=-1)
+        plan = plan_lattice(solve_g1_lattice, goals, target,
+                            obstacle_xy=obstacles, n_path_points=9,
+                            obstacle_radius=0.8)
+        pt = plan.argmin_path[3, :2]
+        kappa = 2.0 * pt[1] / jnp.maximum(pt[0] ** 2 + pt[1] ** 2, 1e-3)
+        steer_e = jnp.arctan(wheelbase * kappa)
+        v_e = (interp_wrapped(rl.ss, rl.vxs, s_t, rl.length)
+               * args.ego_speed_scale)
+        blocked = plan.costs[jnp.argmin(plan.costs)] > 200.0
+        v_e = jnp.where(blocked, 0.8 * v[1], v_e)
+        steer = jnp.stack([steer_e, steer_l])
+        v_cmd = jnp.stack([v_e, v_l])
+        accl, sv = pid_lowlevel(v_cmd, steer, v, delta, params)
+        return jnp.stack([accl, sv], axis=-1)
+
+    return control
+
+
+def overtake_world(from_scan: bool):
+    """The demo's defaults in f32: (args, env, state0, control)."""
+    from irbfn_tpu.planning.lattice import sample_lookahead_grid
+    from irbfn_tpu.sim.map import ScanSpec
+    from irbfn_tpu.sim.multi_agent import MultiAgentEnv
+
+    args = argparse.Namespace(n_steps=300, ego_speed_scale=0.85,
+                              lead_speed_scale=0.45, gap=6.0, lookahead=7.0,
+                              grid=[8, 9, 5], from_scan=from_scan,
+                              n_beams=64)
+    track = oval_track(length=40.0, width=20.0, n_samples=512, speed=4.0)
+    params = f1tenth_params(dtype=jnp.float32)
+    scan_spec = ScanSpec(n_beams=64, fov=4.7) if from_scan else None
+    env = MultiAgentEnv(track, params, n_agents=2, collision_model="rect",
+                        scan_spec=scan_spec)
+    goals = sample_lookahead_grid(args.lookahead, half_width=1.2,
+                                  n_lon=8, n_lat=9, n_theta=5,
+                                  theta_range=0.5)
+    control = overtake_control(args, track, params, goals, scan_spec)
+    state0 = env.reset(s0=jnp.asarray([0.0, args.gap]), speed0=1.0)
+    return args, env, state0, control
+
+
+N_OVERTAKE_STEPS = 30
+
+
+def overtake_golden():
+    """See the module docstring (``overtake_golden.npz``)."""
+    out = {}
+    with jax.enable_x64(False):
+        for mode, from_scan in (("pose", False), ("scan", True)):
+            args, env, state0, control = overtake_world(from_scan)
+
+            @jax.jit
+            def rollout(state):
+                def step_fn(st, _):
+                    obs = env.observe(st)
+                    actions = control(st.x, obs["s"], obs.get("scan"))
+                    st = env.step(st, actions)
+                    return st, (st.x, obs["s"], st.collided, actions)
+
+                return jax.lax.scan(step_fn, state, None,
+                                    length=args.n_steps)
+
+            t0 = time.perf_counter()
+            _, (tx, ts, th, ta) = rollout(state0)
+            tx, ts, th, ta = (np.asarray(a) for a in (tx, ts, th, ta))
+            k = N_OVERTAKE_STEPS
+            out.update({f"{mode}_x": tx[:k], f"{mode}_s": ts[:k],
+                        f"{mode}_hit": th[:k], f"{mode}_actions": ta[:k],
+                        f"{mode}_all_s": ts, f"{mode}_all_hit": th})
+            print(f"overtake ({mode}): {args.n_steps} steps in "
+                  f"{time.perf_counter() - t0:.1f} s (JAX f32, CPU)",
+                  flush=True)
+    return out
+
+
+DEMO_PLANNERS = {"pursuit": (), "goal_mpc": (),
+                 "irbfn": ("--config_f", "configs/frenet_wide_pr1.yaml",
+                           "--ckpt", "ckpts/frenet_wide_pr1")}
+
+
+def demo_golden():
+    """``scripts/demo_closed_loop.py`` itself at its defaults for each of
+    ``DEMO_PLANNERS``: the laps, progress [m], mean |ey| [m] and mean
+    |epsi| [rad] it prints (to its printed digits)."""
+    import contextlib
+    import io
+    import re
+    import runpy
+    import tempfile
+
+    script = os.path.join("scripts", "demo_closed_loop.py")
+    out, old_argv = {}, sys.argv
+    for planner, extra in DEMO_PLANNERS.items():
+        buf = io.StringIO()
+        with tempfile.TemporaryDirectory() as d:
+            sys.argv = ["demo_closed_loop.py", "--planner", planner,
+                        *extra, "--out", os.path.join(d, "demo.png")]
+            try:
+                with jax.enable_x64(False), contextlib.redirect_stdout(buf):
+                    runpy.run_path(script, run_name="__main__")
+            finally:
+                sys.argv = old_argv
+        m = re.search(r"laps (\d+)\s+progress ([-\d.]+) m\s+mean\|ey\| "
+                      r"([\d.]+) m\s+mean\|epsi\| ([\d.]+) rad\s+\[(\w+)\]",
+                      buf.getvalue())
+        laps, progress, ey, epsi, status = m.groups()
+        out.update({f"{planner}_laps": int(laps),
+                    f"{planner}_progress": float(progress),
+                    f"{planner}_ey": float(ey), f"{planner}_epsi": float(epsi),
+                    f"{planner}_crashed": status == "CRASHED"})
+        print(f"demo {planner}: {m.group(0)}", flush=True)
+    return out
+
+
+PPO_SMALL = dict(n_envs=16, n_steps=16, n_epochs=2, n_minibatch=2)
+
+
+def ppo_update(cfg_kw: dict, n_lattice: int) -> dict:
+    """One JAX PPO update from a seed-0 trainer, in f32 as ``train_ppo``
+    runs it: initial and updated parameters (``p0_*``, ``p1_*``, flattened
+    flax keys), the metrics, and every random draw in order (``draw_kinds``,
+    ``draw_<i>``), recorded as the update makes them."""
+    from irbfn_tpu.train.ppo import PPOConfig, PPOTrainer
+
+    names = ("uniform", "categorical", "permutation")
+    orig = {k: getattr(jax.random, k) for k in names}
+    drawn = []
+
+    def recording(k):
+        def f(*a, **kw):
+            v = orig[k](*a, **kw)
+            jax.debug.callback(lambda r, k=k: drawn.append((k, np.asarray(r))),
+                               v, ordered=True)
+            return v
+        return f
+
+    with jax.enable_x64(False):
+        env = TrackEnv(oval_track(n_samples=256, speed=3.0),
+                       f1tenth_params(dtype=jnp.float32), sim_dt=0.02,
+                       control_dt=0.1)
+        trainer = PPOTrainer(env, PPOConfig(**cfg_kw), n_lattice=n_lattice,
+                             seed=0)
+        p0 = jax.tree.map(np.asarray, trainer.params)
+        for k in names:
+            setattr(jax.random, k, recording(k))
+        try:
+            hist = trainer.train(n_updates=1)
+        finally:
+            for k in names:
+                setattr(jax.random, k, orig[k])
+        p1 = jax.tree.map(np.asarray, trainer.params)
+    out = {f"p0_{k}": v for k, v in flatten_tree(p0).items()}
+    out.update({f"p1_{k}": v for k, v in flatten_tree(p1).items()})
+    out.update({f"metric_{k}": np.float64(v) for k, v in hist[0].items()})
+    out["draw_kinds"] = np.asarray([k for k, _ in drawn])
+    for i, (_, v) in enumerate(drawn):
+        out[f"draw_{i}"] = v
+    print(f"PPO {cfg_kw or 'train_ppo defaults'}: one update, {len(drawn)} "
+          f"draws, metrics {hist[0]}", flush=True)
+    return out
+
+
+def ppo_golden():
+    """See the module docstring (``ppo_golden.npz``)."""
+    out = ppo_update({}, 7)
+    out.update({f"small_{k}": v for k, v in ppo_update(PPO_SMALL, 5).items()})
+    return out
+
+
 GOLDENS = {"goal_mpc_pr": (goal_golden, "goal_mpc_golden.npz")}
 GOLDENS["cart_c1_pr"] = (cart_golden, "cart_c1_pr_golden.npz")
 GOLDENS["clothoid_pr"] = (clothoid_golden, "clothoid_golden.npz")
+GOLDENS["quadrotor_pr"] = (quadrotor_golden, "quadrotor_pr_golden.npz")
 
 
 def main():
@@ -1034,6 +1503,21 @@ def main():
     ap.add_argument("--cart_chain_golden", action="store_true",
                     help="write cart_chain_golden.npz (reads no "
                          "checkpoint) and stop")
+    ap.add_argument("--quadrotor_golden", action="store_true",
+                    help="write quadrotor_pr and quadrotor_pr_golden.npz, "
+                         "and stop")
+    for flag, what in (("tracking", "tracking_golden.npz (the LTV "
+                        "tracker's rows)"),
+                       ("sim", "sim_golden.npz (lidar scans and a "
+                        "multi-agent batch)"),
+                       ("overtake", "overtake_golden.npz (the overtake "
+                        "demo's control law)"),
+                       ("ppo", "ppo_golden.npz (one PPO update and its "
+                        "draws)"),
+                       ("demo", "demo_golden.npz (the closed-loop demo "
+                        "script's printed results)")):
+        ap.add_argument(f"--{flag}_golden", action="store_true",
+                        help=f"write {what} (reads no checkpoint) and stop")
     ap.add_argument("--nudge", type=float, default=0.0,
                     help="with --bank_golden: scale the start states by "
                          "(1 + nudge) and compare with the committed golden "
@@ -1046,6 +1530,8 @@ def main():
         return
     if args.clothoid_golden:
         args.run, args.golden = "clothoid_pr", True
+    if args.quadrotor_golden:
+        args.run, args.golden = "quadrotor_pr", True
     if args.bank_golden and args.nudge:
         out = bank_golden(args.out_dir, args.nudge)
         with np.load(os.path.join(args.out_dir, "bank6_golden.npz")) as z:
@@ -1067,11 +1553,18 @@ def main():
     for flag, fn, name in (("nmpc_golden", nmpc_golden, "nmpc_golden.npz"),
                            ("cart_chain_golden", cart_chain_golden,
                             "cart_chain_golden.npz"),
+                           ("tracking_golden", tracking_golden,
+                            "tracking_golden.npz"),
+                           ("sim_golden", sim_golden, "sim_golden.npz"),
+                           ("overtake_golden", overtake_golden,
+                            "overtake_golden.npz"),
+                           ("ppo_golden", ppo_golden, "ppo_golden.npz"),
+                           ("demo_golden", demo_golden, "demo_golden.npz"),
                            ("bank_golden", bank_golden, "bank6_golden.npz"),
                            ("map_golden", map_golden, "map_golden.npz")):
         if getattr(args, flag):
-            out = (fn() if flag in ("nmpc_golden", "cart_chain_golden")
-                   else fn(args.out_dir))
+            out = (fn(args.out_dir) if flag in ("bank_golden",
+                                                "map_golden") else fn())
             np.savez_compressed(os.path.join(args.out_dir, name), **out)
             print(f"wrote {name}")
             return
