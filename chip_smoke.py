@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (one NVIDIA GPU).
 
-Drives ``irbfn_tpu_torch`` through its five paths: the learned Frenet
+Drives ``irbfn_tpu_torch`` through its paths: the learned Frenet
 planner in closed loop, with the flagship ``frenet_wide_pr1`` WCRBF net
 (R=16 regions, K=512 kernels, F=8 inputs, O=10 outputs, per-region heads;
 kernel ``rbf_forward``); the goal-MPC path (kernel ``admm_solve``): the
@@ -24,7 +24,10 @@ stragglers patched, the ``cart_c1_pr`` recipe, the fitted net in the
 closed loop; and the linear-MPC family and the rest of the simulator: the
 quadrotor pipeline (its net ``quadrotor_pr`` through ``rbf_forward``), the
 LTV tracking MPC (``admm_solve``), lidar and multi-agent racing, the
-overtake demo, PPO and the closed-loop demos. Each phase prints one line
+overtake demo, PPO and the closed-loop demos; and multi-device: the
+region-sharded (expert-parallel) forward through the kernel's partial
+mode, the sharded lattice solves and the DP x EP dry run on NCCL. Each
+phase prints one line
 (the entry points of phases 28-39 write their own output to
 ``torch_runs/chip_smoke_logs/phase<n>_*.log``), and any failure exits
 non-zero:
@@ -178,7 +181,26 @@ non-zero:
     parameters with its draws against the JAX golden;
 39. ``demo_closed_loop`` at its defaults for ``pursuit``, ``irbfn`` and
     ``goal_mpc`` (both kernels' launches counted), and the
-    ``demo_traj_fan`` net fan (``clothoid_pr``) against its plain version.
+    ``demo_traj_fan`` net fan (``clothoid_pr``) against its plain version;
+
+40. the expert-parallel forward: ``frenet_wide_pr1`` at B = 1,024 and
+    65,536 split into E in {2, 4, 8, 16} region slices, ``clothoid_pr`` at
+    B = 8,192 into 2 and 8, a shared-head net into 2 to 16, each slice one
+    launch of ``rbf_forward.cu``'s partial mode, the slices' sums added and
+    divided as the expert all_reduce does; against the unsharded kernel and
+    the plain partial mode; E launches per sharded forward; the partial
+    launch timed in turns with the default mode;
+41. the sharded datagen on NCCL at world 1: one 2,642,368-goal family of
+    phase 10 through ``solve_goal_lattice_sharded`` (twice) and 65,536 rows
+    of the reference Frenet lattice through ``solve_lattice_sharded`` at
+    the dry run's NMPC budget, each bit for bit the one-device solve's
+    (the rows solved once before, which the first NMPC solve of a process
+    needs: it is not bit for bit the later ones);
+42. the dry run: ``graft_entry.entry()``'s forward (one launch),
+    ``dryrun_multichip`` over every visible card on NCCL, the DP x EP step
+    at ``frenet_wide_pr1``'s width (batch 8,192) on the world of one against
+    the plain step, and, with more than one card visible, NCCL ranks on up
+    to 8 of them against the one-card EP forward and goal family.
 
 The last two lines are a JSON object naming both kernels with their
 launches, errors, times and bounds, and the line
@@ -3414,6 +3436,401 @@ def linear_mpc_and_sim(device):
     return q, tracking, demos
 
 
+# ------------------------------------------------------------ multi-device
+
+EP_EXPERTS = (2, 4, 8, 16)  # region slices of frenet_wide_pr1 (R = 16)
+EP_BATCHES = (1024, 65536)
+CLOTHOID_EP = (8192, (2, 8))  # clothoid_pr (R = 128): batch, slices
+GOAL_V_CAR = 4.5  # the family of phase 10's lattice that phase 41 solves
+N_FRENET_SHARDED = 65536
+FRENET_SHARDED_BPD = 8192  # gen_nmpc_table_frenet's default chunk
+DRYRUN_NMPC = dict(gn_iters=2, al_outer=1)  # the dry run's NMPC budget
+STEP_BATCH = 8192
+TOL_STEP_REL = 1e-6  # the world-1 DP x EP step against the plain step
+
+
+def _region_slices(model, E):
+    """The kernel operands of each of E expert ranks: ``model`` as
+    ``shard_params`` leaves it on rank e of an expert axis of E, without a
+    process group (the ranks' partial sums are added here)."""
+    import torch
+
+    from irbfn_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS, Mesh,
+                                               shard_params)
+
+    with torch.no_grad():
+        return [shard_params(model, Mesh(
+            model.centers.device, {DATA_AXIS: 1, EXPERT_AXIS: E}, e)
+        ).kernel_operands() for e in range(E)]
+
+
+def _sharded_forward(x, slices, forward):
+    """The expert ranks' partial forwards added up, as the expert group's
+    all_reduce adds them, then finished (``rbf.finish_partial``)."""
+    from irbfn_tpu_torch.ops import rbf
+
+    total = forward(x, slices[0], partial=True)
+    for ops in slices[1:]:
+        total = total + forward(x, ops, partial=True)
+    return rbf.finish_partial(total, slices[0])
+
+
+def _turns(fns, iters=200, warmup=20):
+    """Each of ``fns`` timed with CUDA events in turns (the order, then the
+    order reversed); mean ms of each, and the runs."""
+    t = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        t[k].append(_time_ms(fns[k], iters, warmup))
+    return {k: float(np.mean(v)) for k, v in t.items()}, t
+
+
+def phase_ep_forward(device, flagship, golden):
+    """Phase 40: the expert-parallel forward through ``rbf_forward.cu``'s
+    partial mode. Each net is split into E region slices, each slice is one
+    partial launch on the card, and the partial sums are added and divided
+    as the expert group's all_reduce and ``finish_partial`` do; held
+    against the unsharded kernel and the plain partial mode."""
+    import torch
+
+    from irbfn_tpu_torch.ops import rbf
+
+    rng = np.random.default_rng(40)
+    clothoid, _ = _asset(CLOTHOID_ASSET, device)
+    shared = _random_net(rng, device, 16, 512, 8, 10, "gaussian", "shared")
+    x = (torch.as_tensor(golden["x"], device=device)
+         * flagship.input_scale).contiguous()
+    goals = torch.as_tensor(_npz(CLOTHOID_GOLDEN)["goals"][:CLOTHOID_EP[0]],
+                            device=device)
+    runs = [("frenet_wide_pr1", flagship, TOL_FLAGSHIP, False,
+             [(x if B == len(x) else x.repeat(-(-B // len(x)), 1)[:B]
+               .contiguous(), E) for B in EP_BATCHES for E in EP_EXPERTS]),
+            ("clothoid_pr", clothoid, TOL_CLOTHOID_FORWARD, True,
+             [((goals * clothoid.input_scale).contiguous(), E)
+              for E in CLOTHOID_EP[1]]),
+            ("shared head R=16 K=512", shared, TOL_RANDOM, True,
+             [(_random_x(rng, shared, 1024, device), E)
+              for E in EP_EXPERTS])]
+    errs, n_launches = {}, 0
+    for name, net, tol, relative, cases in runs:
+        full_ops = rbf.wcrbf_params_to_kernel(net)
+        for xs, E in cases:
+            slices = _region_slices(net, E)
+            with torch.no_grad():
+                full = rbf.wcrbf_forward(xs, full_ops)
+                torch.cuda.synchronize()
+                reset_launches()
+                got = _sharded_forward(xs, slices, rbf.wcrbf_forward)
+                torch.cuda.synchronize()
+                launches = read_launches()["rbf_forward"]
+                plain = _sharded_forward(xs, slices,
+                                         rbf.wcrbf_forward_reference)
+            check(launches == E, f"{name} E={E}: {launches} launches, not "
+                  f"one per slice")
+            n_launches += launches
+            scale = max(1.0, float(plain.abs().max())) if relative else 1.0
+            e = (_max_err(got, full) / scale, _max_err(got, plain) / scale)
+            errs[name, xs.shape[0], E] = e
+            check(bool(torch.isfinite(got).all()) and max(e) <= tol,
+                  f"{name} B={xs.shape[0]} E={E}: sharded vs unsharded "
+                  f"kernel {e[0]:.3e}, vs plain partial {e[1]:.3e}, tol "
+                  f"{tol}")
+    # times at B = 1024: the default forward over the 16 regions, one
+    # partial launch over a rank's 8 of them (E = 2), both ranks' launches
+    # in a row with the sum and the divide, and the plain partial mode
+    xb = x[:1024].contiguous()
+    halves = _region_slices(flagship, 2)
+    full_ops = rbf.wcrbf_params_to_kernel(flagship)
+    with torch.no_grad():
+        ms, t = _turns({
+            "default": lambda: rbf.wcrbf_forward(xb, full_ops),
+            "partial": lambda: rbf.wcrbf_forward(xb, halves[0],
+                                                 partial=True),
+            "sharded": lambda: _sharded_forward(xb, halves,
+                                                rbf.wcrbf_forward),
+            "plain": lambda: rbf.wcrbf_forward_reference(xb, halves[0],
+                                                         partial=True)})
+    ops = halves[0]
+    nbytes = 4 * (sum(o.numel() for o in ops[:7]) + xb.numel()
+                  + xb.shape[0] * (ops.w.shape[-1] + 1))
+    bound_ms, bound_by = _bound(_rbf_flops(xb.shape[0], ops), nbytes)
+    print("EP forward (rbf_forward partial mode, slices summed and divided "
+          "as the expert all_reduce does; tol "
+          f"{TOL_FLAGSHIP} abs / {TOL_CLOTHOID_FORWARD} and {TOL_RANDOM} "
+          "rel): max|err| vs the unsharded kernel / vs the plain partial "
+          "mode: " + ", ".join(f"{n} B={b} E={E} {a:.2e}/{p:.2e}"
+                               for (n, b, E), (a, p) in errs.items())
+          + f"; {n_launches} partial launches, E per sharded forward; "
+          f"times at B=1024 (CUDA events, in turns): default "
+          f"{ms['default']:.4f} ms, one partial launch over 8 regions "
+          f"{ms['partial']:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}), "
+          f"2 partial launches + sum + divide {ms['sharded']:.4f} ms, plain "
+          f"partial {ms['plain']:.4f} ms (runs {t})", flush=True)
+    return dict(launches=n_launches,
+                max_abs_err=max(a for a, _ in errs.values()),
+                ms=ms["partial"], plain_ms=ms["plain"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                default_ms=ms["default"], sharded_e2_ms=ms["sharded"])
+
+
+@contextlib.contextmanager
+def nccl_world_of_one(device):
+    """A process group of one rank on NCCL (a file store in a temporary
+    directory) for phases 41-42, destroyed after them; yields its mesh."""
+    import torch.distributed as dist
+
+    from irbfn_tpu_torch.parallel.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1, device_id=device)
+        try:
+            yield make_mesh(device=device)
+        finally:
+            dist.destroy_process_group()
+
+
+def _equal_tables(label, a, b):
+    bad = [k for k in a if not np.array_equal(a[k], b[k])]
+    check(set(a) == set(b) and not bad, f"{label}: {bad} differ")
+
+
+def phase_sharded_datagen(device, mesh, lattice_goals, phase10_family_s):
+    """Phase 41: the sharded lattice solves on NCCL at world 1: one
+    2,642,368-goal family of phase 10 through ``solve_goal_lattice_sharded``
+    (the generator's 600 sweeps and 262,144-goal chunks) and 65,536 rows of
+    the reference Frenet lattice through ``solve_lattice_sharded`` at the
+    dry run's NMPC budget, each bit for bit the one-device solve's."""
+    import torch
+
+    from irbfn_tpu_torch._device import wait_clock
+    from irbfn_tpu_torch.dynamics.params import fullscale_params
+    from irbfn_tpu_torch.parallel import (FRENET_GRID, TableSolution,
+                                          build_lattice, solve_lattice,
+                                          solve_lattice_sharded)
+    from irbfn_tpu_torch.parallel import gen_goal_mpc_table as gen
+    from irbfn_tpu_torch.solvers import (NMPCConfig, solve_goal_lattice,
+                                         solve_goal_lattice_sharded,
+                                         solve_lattice_point)
+
+    args = gen.parse_args(list(LATTICE_ARGS))
+    G = len(lattice_goals)
+    kw = dict(iters=args.iters, batch_per_device=min(args.chunk, G))
+    t0 = wait_clock(device)
+    direct = solve_goal_lattice(GOAL_V_CAR, lattice_goals, device=device,
+                                **kw)
+    t_direct = wait_clock(device) - t0
+    reset_launches()
+    t_sharded = []  # the first includes NCCL's communicator set-up
+    for _ in range(2):
+        t0 = wait_clock(device)
+        sharded = solve_goal_lattice_sharded(GOAL_V_CAR, lattice_goals,
+                                             mesh=mesh, **kw)
+        t_sharded.append(wait_clock(device) - t0)
+        _equal_tables("sharded goal family vs solve_goal_lattice", sharded,
+                      direct)
+    goal_launches = read_launches()["admm_solve"]
+    check(goal_launches == 2 * -(-G // kw["batch_per_device"]),
+          f"sharded family, twice: {goal_launches} admm_solve launches")
+
+    rng = np.random.default_rng(41)
+    lattice = build_lattice(FRENET_GRID)
+    rows = lattice[np.sort(rng.choice(len(lattice), N_FRENET_SHARDED,
+                                      replace=False))]
+    del lattice
+    cfg = NMPCConfig(**DRYRUN_NMPC)
+    params = fullscale_params(dtype=torch.float32, device=device)
+
+    def fn(r, pv):
+        return TableSolution.from_solution(solve_lattice_point(r, pv, cfg),
+                                           include_onehot=True)._asdict()
+
+    # three solves of the same rows: the first NMPC solve of a process is
+    # not bit for bit the later ones (reported, not held), the next two are
+    t_nmpc, f_runs = {}, {}
+    for name in ("earlier", "direct", "sharded"):
+        t0 = wait_clock(device)
+        f_runs[name] = (
+            solve_lattice_sharded(fn, rows, mesh=mesh, args=(params,),
+                                  batch_per_device=FRENET_SHARDED_BPD)
+            if name == "sharded" else
+            solve_lattice(fn, rows, batch_per_device=FRENET_SHARDED_BPD,
+                          args=(params,), device=device))
+        t_nmpc[name] = wait_clock(device) - t0
+    _equal_tables("sharded Frenet rows vs solve_lattice", f_runs["sharded"],
+                  f_runs["direct"])
+    moved = np.zeros(len(rows), bool)
+    d_max = 0.0
+    for k, v in f_runs["direct"].items():
+        d = np.abs(v.astype(np.float64)
+                   - f_runs["earlier"][k].astype(np.float64))
+        moved |= d.reshape(len(rows), -1).max(-1) > 0
+        d_max = max(d_max, float(d.max()))
+    print(f"sharded datagen (NCCL, world 1, mesh {mesh.shape}): goal family "
+          f"v_car={GOAL_V_CAR} ({G:,} goals, {args.iters} sweeps, chunks of "
+          f"{kw['batch_per_device']:,}) sharded {t_sharded[0]:.3f} s, then "
+          f"{t_sharded[1]:.3f} s, solve_goal_lattice {t_direct:.3f} s, "
+          f"phase 10's mean family {phase10_family_s:.3f} s; bit for bit "
+          f"equal, {goal_launches} admm_solve launches in the two, "
+          f"{100 * sharded['converged'].mean():.4f}% converged; "
+          f"{N_FRENET_SHARDED:,} Frenet rows at gn_iters="
+          f"{cfg.gn_iters}, al_outer={cfg.al_outer} (chunks of "
+          f"{FRENET_SHARDED_BPD:,}) sharded {t_nmpc['sharded']:.2f} s, "
+          f"solve_lattice {t_nmpc['direct']:.2f} s, bit for bit equal, "
+          f"{100 * f_runs['sharded']['feasible'].mean():.1f}% feasible; an "
+          f"earlier solve of the same rows ({t_nmpc['earlier']:.2f} s) "
+          f"differs from them on {int(moved.sum())} rows, by up to "
+          f"{d_max:.3g}", flush=True)
+    return goal_launches
+
+
+def _flagship_case(model, golden):
+    """``parallel/rank_checks.py``'s case of the flagship at B = 1024."""
+    from irbfn_tpu_torch.train import load_config
+
+    return dict(config=load_config(ASSET + ".json"),
+                state={k: v.detach().cpu().numpy()
+                       for k, v in model.state_dict().items()},
+                x=np.asarray(golden["x"][:1024], np.float32), y=None,
+                extra=None, dtype="float32", loss="frenet_fullint_loss")
+
+
+def _step_world_one(device, mesh, golden):
+    """The DP x EP step at frenet_wide_pr1's width on the NCCL world of one
+    against the plain step on a second copy of the net: loss and every
+    gradient after the clip. The batch is the golden's inputs, repeated
+    and jittered; the targets the net's own controls, jittered."""
+    import torch
+
+    from irbfn_tpu_torch.dynamics.params import fullscale_params
+    from irbfn_tpu_torch.parallel.mesh import data_sharding, shard_params
+    from irbfn_tpu_torch.train import (create_trainer, frenet_fullint_loss,
+                                       make_train_step)
+
+    rng = np.random.default_rng(42)
+    plain_net, _ = _flagship(device)
+    x0 = np.asarray(golden["x"], np.float32)
+    x0 = np.tile(x0, (-(-STEP_BATCH // len(x0)), 1))[:STEP_BATCH]
+    x = torch.as_tensor(x0 * (1.0 + 0.01 * rng.normal(size=x0.shape)),
+                        dtype=torch.float32, device=device)
+    with torch.no_grad():
+        y = plain_net(x) + 0.1 * torch.as_tensor(
+            rng.normal(size=(STEP_BATCH, 10)), dtype=torch.float32,
+            device=device)
+    dyn = fullscale_params(dtype=torch.float32, device=device).to_vector()
+    sharded_net = shard_params(plain_net, mesh)
+    trainers = [create_trainer(plain_net), create_trainer(sharded_net)]
+    steps = [make_train_step(frenet_fullint_loss, dyn),
+             make_train_step(frenet_fullint_loss, dyn, mesh=mesh)]
+    shard = data_sharding(mesh)
+    reset_launches()
+    m = [steps[0](trainers[0], x, y),
+         steps[1](trainers[1], shard(x), shard(y))]
+    launches = read_launches()
+    rel = {}
+    for (n, p), q in zip(plain_net.named_parameters(),
+                         sharded_net.parameters()):
+        rel[n] = _max_err(q.grad, p.grad) / max(float(p.grad.abs().max()),
+                                                1e-30)
+    rel["loss"] = abs(float(m[1].loss) - float(m[0].loss)) / abs(
+        float(m[0].loss))
+    same = all(torch.equal(q.grad, p.grad) for p, q in zip(
+        plain_net.parameters(), sharded_net.parameters()))
+    check(max(rel.values()) <= TOL_STEP_REL and launches["rbf_forward"] == 0,
+          f"DP x EP step vs the plain step: {rel}, launches {launches}")
+    return rel, same, float(m[0].loss)
+
+
+def _multi_card(device_type, world, model, golden, lattice_goals):
+    """NCCL ranks on ``world`` cards (gloo ranks on the host for
+    ``device_type="cpu"``): the EP forward of the flagship for each expert
+    count that divides both the world and R = 16, and a goal family cut to
+    ``world`` chunks of 262,144, against the same on one device."""
+    import torch
+
+    from irbfn_tpu_torch.ops import rbf
+    from irbfn_tpu_torch.parallel import launch, rank_checks
+    from irbfn_tpu_torch.solvers import solve_goal_lattice
+
+    experts = [e for e in (1, 2, 4, 8) if world % e == 0 and 16 % e == 0]
+    case = _flagship_case(model, golden)
+    goals = lattice_goals[:world * 262144]
+    jobs = [("forward", case, e) for e in experts]
+    jobs.append(("goal_lattice", GOAL_V_CAR, goals, 600, 262144))
+    per_rank = launch.spawn(rank_checks.run_jobs, world, device_type, jobs)
+    x = (torch.as_tensor(case["x"], device=model.centers.device)
+         * model.input_scale).contiguous()
+    with torch.no_grad():
+        ref = rbf.wcrbf_forward(x, rbf.wcrbf_params_to_kernel(model)).cpu()
+    one = solve_goal_lattice(GOAL_V_CAR, goals, iters=600,
+                             batch_per_device=262144,
+                             device=model.centers.device)
+    err = 0.0
+    for res in per_rank:
+        for e, r in zip(experts, res):
+            err = max(err, _max_err(torch.from_numpy(r["fused"]), ref))
+        _equal_tables(f"goal family on {world} ranks", res[-1]["sharded"],
+                      one)
+    check(err <= TOL_FLAGSHIP, f"EP forward on {world} ranks: {err:.3e}")
+    return experts, err
+
+
+def phase_dryrun(device, mesh, model, golden, lattice_goals):
+    """Phase 42: ``graft_entry.entry()``'s forward on the card, the
+    ``dryrun_multichip`` of every visible card on NCCL, the DP x EP step at
+    frenet_wide_pr1's width on the world of one against the plain step,
+    and, where more than one card is visible, NCCL ranks on up to 8 of them
+    against the one-card results."""
+    import torch
+
+    from irbfn_tpu_torch import graft_entry
+
+    forward, args = graft_entry.entry()
+    reset_launches()
+    out = forward(*args)
+    torch.cuda.synchronize()
+    entry_launches = read_launches()
+    check(tuple(out.shape) == (1024, 10) and bool(torch.isfinite(out).all())
+          and entry_launches["rbf_forward"] == 1,
+          f"entry(): {tuple(out.shape)}, launches {entry_launches}")
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(n)
+    t_dry = time.perf_counter() - t0
+    check(np.isfinite(dry["loss"]), f"dryrun_multichip: {dry}")
+    rel, same, loss = _step_world_one(device, mesh, golden)
+    if n > 1:
+        world = min(n, 8)
+        experts, err = _multi_card("cuda", world, model, golden,
+                                   lattice_goals)
+        multi = (f"{world} NCCL ranks: the EP forward at expert "
+                 f"{experts} within {err:.2e} of the one-card kernel, the "
+                 "goal family bit for bit the one-card solve")
+    else:
+        multi = ("world 1 only: one card visible, no ranks on other cards "
+                 "to check")
+    print(f"dry run: entry() forward (1024, 10) finite, launches "
+          f"{entry_launches}; dryrun_multichip({n}) on NCCL in {t_dry:.1f} s "
+          f"({dry}); DP x EP step at frenet_wide_pr1's width (batch "
+          f"{STEP_BATCH}, frenet_fullint_loss, mesh {mesh.shape}) against "
+          f"the plain step: loss {loss:.6f}, max rel err "
+          + ", ".join(f"{k} {v:.1e}" for k, v in rel.items())
+          + f" (tol {TOL_STEP_REL}), gradients bit for bit equal: {same}; "
+          f"{multi}", flush=True)
+    return entry_launches["rbf_forward"]
+
+
+def multi_device(device, model, golden, lattice_goals, phase10_family_s):
+    """Phases 40-42; the launches of each kernel and the partial mode's
+    numbers."""
+    partial = phase_ep_forward(device, model, golden)
+    with nccl_world_of_one(device) as mesh:
+        admm = phase_sharded_datagen(device, mesh, lattice_goals,
+                                     phase10_family_s)
+        rbf = phase_dryrun(device, mesh, model, golden, lattice_goals)
+    return dict(rbf=partial["launches"] + rbf, admm=admm, partial=partial)
+
+
 def main() -> int:
     import torch
 
@@ -3440,6 +3857,7 @@ def main() -> int:
     net = phase_goal_net(device, goal_golden)
     phase_goal_against_jax(device, goal_golden, net)
     _, _, lattice = phase_lattice(device)
+    phase10_family_s = lattice["seconds"] / lattice["speed"].shape[0]
     admm_launches = phase_goal_loop(device, goal_golden, "solver",
                                     net)["launches"]
     net_loop = phase_goal_loop(device, goal_golden, "net", net)
@@ -3464,14 +3882,17 @@ def main() -> int:
     cart_rbf = phase_cartesian_chain(device)
     # the linear-MPC family, the rest of the sim, PPO and the demos
     quad, tracking, demos = linear_mpc_and_sim(device)
-    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
+    # multi-device: the EP forward, the sharded datagen, the dry run
+    md = multi_device(device, model, golden, lattice_goals, phase10_family_s)
+    print(f"all 42 phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [
         dict(KERNELS["rbf_forward"],
              launches=(rbf_launches + frenet_launches + loop_launches
                        + sum(world_rbf.values())
                        + sum(clothoid_rbf.values()) + cart_rbf
-                       + quad["run"] + quad["loop"] + demos["rbf"]),
+                       + quad["run"] + quad["loop"] + demos["rbf"]
+                       + md["rbf"]),
              launches_frenet_loop=rbf_launches,
              launches_frenet_chain=frenet_launches + loop_launches,
              **{f"launches_{k}": v for k, v in world_rbf.items()},
@@ -3481,6 +3902,8 @@ def main() -> int:
              launches_quadrotor_pipeline=quad["run"],
              launches_quadrotor_loop=quad["loop"],
              launches_demos=demos["rbf"],
+             launches_multi_device=md["rbf"],
+             partial_mode=md["partial"],
              quadrotor_pr={k: v for k, v in quad.items()
                            if k not in ("run", "loop")},
              clothoid_pr={k: v for k, v in clothoid.items()
@@ -3488,11 +3911,12 @@ def main() -> int:
              max_abs_err=err_1024, **rbf_times),
         dict(KERNELS["admm_solve"],
              launches=(admm_launches + osch_admm + tracking["launches"]
-                       + demos["admm"]),
+                       + demos["admm"] + md["admm"]),
              launches_goal_loop=admm_launches,
              launches_oschersleben=osch_admm,
              launches_tracking=tracking["launches"],
              launches_demos=demos["admm"],
+             launches_sharded_datagen=md["admm"],
              tracking={k: v for k, v in tracking.items()
                        if k != "launches"},
              launches_fit_eval=chain_launches["admm_solve"],

@@ -19,6 +19,16 @@ heads over normalised gammas.
 Neither route is a fallback for the other: a kernel that cannot build or
 launch raises.
 
+A model with a region core can hold a shard of it: ``parallel/mesh.py:
+shard_params`` keeps regions ``[start, stop)`` of ``centers`` and
+``log_sigs`` on each rank of an expert group (``expert_shard``). The gate
+constants, the gate layer and the heads stay whole. Every route then sums
+its regions' share of the output (or, for ``DeeperWCRBFNet``, of the
+blended features) over the group with one ``all_reduce``: the fused op in
+its partial mode, whose gate sum is reduced beside the numerator before the
+divide, and the module path with an ``all_reduce`` that autograd sees
+(``expert_sum``).
+
 ``DeeperWCRBFNet`` (an MLP head over the blended features), ``MLP`` (the
 plain baseline) and ``ClusterWCRBFNet`` (a learned softmax gate; returns
 ``(y, logits)``) run through plain tensor operations only, as they do in
@@ -28,10 +38,11 @@ layout, so a JAX checkpoint maps one to one (``train/checkpoints.py``).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from irbfn_tpu_torch._device import resolve_device
@@ -102,6 +113,48 @@ def region_features(x, region_weights, centers, log_sigs, basis_func,
     return torch.einsum("br,brk->bk", region_weights, phi)
 
 
+class ExpertShard(NamedTuple):
+    """A model's share of its region core: regions ``[start, stop)``, held
+    by rank ``rank`` of the ``size`` ranks of the expert ``group`` (a
+    ``torch.distributed`` process group)."""
+
+    start: int
+    stop: int
+    group: object
+    rank: int
+    size: int
+
+
+class _ExpertSum(torch.autograd.Function):
+    """``all_reduce`` (sum) over the expert group. Every rank of the group
+    reads the sum, so the gradient of each rank's input is the sum of the
+    group's output gradients: the backward is an ``all_reduce`` too. A
+    loss that every rank of the group computes alike is thereby counted
+    once per rank: the train step scales it (``train/trainer.py:
+    make_train_step``)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def expert_sum(t: torch.Tensor, shard: Optional[ExpertShard]):
+    """``t`` summed over the ranks of ``shard``'s expert group, with the
+    backward above; ``t`` itself for a whole model or a group of one."""
+    if shard is None or shard.size == 1:
+        return t
+    return _ExpertSum.apply(t, shard.group)
+
+
 def _dense_init(gen, fan_in: int, fan_out: int) -> torch.Tensor:
     """The JAX package's default Dense kernel initialiser (LeCun normal: a
     normal of variance 1/fan_in truncated at two standard deviations),
@@ -133,9 +186,25 @@ class _RBFModule(nn.Module):
         return (h @ getattr(self, f"{name}_kernel")
                 + getattr(self, f"{name}_bias"))
 
+    expert_shard: Optional[ExpertShard] = None  # set by shard_params
+
     def _add_core(self, R: int, K: int, F: int, kw: dict):
+        self.num_regions = R
         self.centers = nn.Parameter(torch.zeros((R, K, F), **kw))
         self.log_sigs = nn.Parameter(torch.zeros((R, K), **kw))
+
+    def region_range(self):
+        """``(start, stop)``: the regions of the core this module holds."""
+        s = self.expert_shard
+        return (0, self.num_regions) if s is None else (s.start, s.stop)
+
+    def _sharded_features(self, x, weights, head_mode: str = "shared"):
+        """``region_features`` over the regions this module holds, with
+        ``weights`` (B, R) over all of them."""
+        r0, r1 = self.region_range()
+        return region_features(x, weights[:, r0:r1], self.centers,
+                               self.log_sigs, self.basis_func,
+                               self.input_scale, head_mode)
 
     def _register_constant(self, name: str, val, kw: dict):
         """A config constant: a buffer that is not part of the state_dict."""
@@ -260,10 +329,23 @@ class WCRBFNet(_RBFModule):
                               self.gate_delta[act].to(x.dtype))
         if self.head_mode == "per_region":
             gamma = gamma / (gamma.sum(-1, keepdim=True) + 1e-9)
+        if self.expert_shard is not None:
+            return self._sharded_head(x, gamma)
         feats = region_features(x, gamma, self.centers, self.log_sigs,
                                 self.basis_func, self.input_scale,
                                 self.head_mode)
         return self._dense("head", feats)
+
+    def _sharded_head(self, x, gamma):
+        """The module path of a shard: this rank's regions through their
+        rows of the head, summed over the expert group, plus the bias."""
+        feats = self._sharded_features(x, gamma, self.head_mode)
+        w = self.head_kernel
+        if self.head_mode == "per_region":
+            (r0, r1), R, K = self.region_range(), self.num_regions, \
+                self.num_kernels
+            w = torch.cat([w[r0 * K:r1 * K], w[R * K + r0:R * K + r1]])
+        return expert_sum(feats @ w, self.expert_shard) + self.head_bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, F) -> (B, O)``. When autograd records and ``x`` or any
@@ -276,7 +358,11 @@ class WCRBFNet(_RBFModule):
             return self.forward_module(x)
         if self.input_scale is not None:
             x = x * self.input_scale.to(x.dtype)
-        return _rbf.wcrbf_forward(x, self.kernel_operands())
+        ops = self.kernel_operands()
+        if self.expert_shard is None:
+            return _rbf.wcrbf_forward(x, ops)
+        part = _rbf.wcrbf_forward(x.contiguous(), ops, partial=True)
+        return _rbf.finish_partial(expert_sum(part, self.expert_shard), ops)
 
 
 def _geometric_gate(module, lower_bounds, upper_bounds, dimension_ranges,
@@ -319,8 +405,8 @@ class DeeperWCRBFNet(_RBFModule):
                                   self.gate_ub.to(x.dtype),
                                   self.gate_delta.to(x.dtype),
                                   self.activation_idx)
-        feats = region_features(x, gamma, self.centers, self.log_sigs,
-                                self.basis_func, self.input_scale)
+        feats = expert_sum(self._sharded_features(x, gamma),
+                           self.expert_shard)
         h = torch.relu(self._dense("pre1", feats))
         h = torch.relu(self._dense("pre2", h))
         return self._dense("head", h)
@@ -383,6 +469,6 @@ class ClusterWCRBFNet(_RBFModule):
     def forward(self, x: torch.Tensor):
         logits = self._dense("gate", x)
         weights = torch.softmax(logits, dim=-1)
-        feats = region_features(x, weights, self.centers, self.log_sigs,
-                                self.basis_func, self.input_scale)
-        return self._dense("head", feats), logits
+        feats = self._sharded_features(x, weights)
+        return (expert_sum(feats @ self.head_kernel, self.expert_shard)
+                + self.head_bias), logits

@@ -13,6 +13,12 @@ the device of its input:
 ``wcrbf_forward.launches`` counts the forwards that went through the kernel
 (each is two launches: the region groups' partial sums, then their ordered
 sum): a run can show that its main path went through the kernel.
+
+``partial=True`` is the forward of one shard of the regions, for a net whose
+region axis is split over the ranks of an expert group
+(``models/wcrbf.py``): ``(B, O + 1)``, the undivided region sums and the
+shard's gate sum, which the ranks add up (one ``all_reduce``) before
+``finish_partial`` divides, as the default mode does within one launch.
 """
 
 from __future__ import annotations
@@ -101,17 +107,23 @@ def wcrbf_params_to_kernel(model) -> RBFOperands:
     ``input_scale`` s is folded into the centers and bounds (times s) and
     the gate sharpness (over s). Call it once per model and set of weights
     (``WCRBFNet.kernel_operands`` keeps the result): the packing costs a few
-    tensor operations that a forward should not repeat.
+    tensor operations that a forward should not repeat. A model whose
+    regions are sharded (``parallel/mesh.py:shard_params``) gives the
+    operands of its own regions ``model.region_range()``: their centers,
+    bounds and heads, for the partial mode.
     """
     centers, lb, ub, delta = (model.centers, model.gate_lb, model.gate_ub,
                               model.gate_delta)
     if model.input_scale is not None:
         s = model.input_scale
         centers, lb, ub, delta = centers * s, lb * s, ub * s, delta / s
+    r0, r1 = model.region_range()  # every region, unless sharded
+    lb, ub = lb[r0:r1], ub[r0:r1]
     w, b = model.head_kernel, model.head_bias
     if model.head_mode == "per_region":
         R, K = model.num_regions, model.num_kernels
-        w, b = w[:R * K].reshape(R, K, -1), w[R * K:] + b[None]
+        w, b = (w[:R * K].reshape(R, K, -1)[r0:r1],
+                (w[R * K:] + b[None])[r0:r1])
     centers, w = centers.contiguous(), w.contiguous()
     inv_sigs = torch.exp(-model.log_sigs)
     packed = (pack_operands(centers, inv_sigs, w)
@@ -142,11 +154,19 @@ def center_distances(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(sq, min=1e-30))
 
 
-def wcrbf_forward_reference(x: torch.Tensor, ops: RBFOperands) -> torch.Tensor:
+def wcrbf_forward_reference(x: torch.Tensor, ops: RBFOperands,
+                            partial: bool = False) -> torch.Tensor:
     """Plain PyTorch forward, in ``x``'s dtype: materialises the (B, R, K)
-    basis tensor that the kernel keeps on chip."""
+    basis tensor that the kernel keeps on chip. ``partial``: the kernel's
+    partial mode, ``(B, O + 1)`` (module docstring)."""
     c, inv_sigs, lb, ub, delta, w, b = (t.to(x.dtype) for t in ops[:7])
     gamma = box_gate(x, lb, ub, delta)  # (B, R)
+    if partial:
+        gphi = gamma[:, :, None] * BASIS_FUNCTIONS[ops.basis](
+            center_distances(x, c) * inv_sigs)
+        num = (gphi.reshape(x.shape[0], -1) @ w.reshape(-1, w.shape[-1])
+               + gamma @ b if ops.per_region else gphi.sum(1) @ w)
+        return torch.cat([num, gamma.sum(-1, keepdim=True)], dim=-1)
     if ops.per_region:
         gamma = gamma / (gamma.sum(-1, keepdim=True) + 1e-9)
     d = center_distances(x, c) * inv_sigs
@@ -163,10 +183,10 @@ def _library() -> ctypes.CDLL:
 
     res = build("rbf_forward")
     lib = ctypes.CDLL(str(res.path))
-    fn = lib.rbf_forward_f32
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.rbf_forward_f32, lib.rbf_forward_partial_f32):
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.rbf_empty_launch.argtypes = [ctypes.c_void_p]
     lib.rbf_empty_launch.restype = ctypes.c_int
     lib.build_result = res
@@ -282,7 +302,8 @@ def _check(ops: RBFOperands) -> _Checked:
                     any(t.requires_grad for t in tensors))
 
 
-def _launch(x: torch.Tensor, ops: RBFOperands) -> torch.Tensor:
+def _launch(x: torch.Tensor, ops: RBFOperands,
+            partial: bool = False) -> torch.Tensor:
     ok = _CHECKED.get(id(ops))
     if ok is None or ok.ops is not ops:
         ok = _check(ops)
@@ -302,7 +323,8 @@ def _launch(x: torch.Tensor, ops: RBFOperands) -> torch.Tensor:
         raise ValueError("RBF operand shapes do not agree: x "
                          f"{tuple(x.shape)}, centers {(R, K, F)}")
     B = x.shape[0]
-    out = torch.empty((B, O), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, O + 1 if partial else O), dtype=torch.float32,
+                      device=x.device)
     if B == 0:
         return out
     index = x.device.index
@@ -319,7 +341,9 @@ def _launch(x: torch.Tensor, ops: RBFOperands) -> torch.Tensor:
     if index != current:
         torch.cuda.set_device(index)
     try:
-        rc = lib.rbf_forward_f32(
+        forward = (lib.rbf_forward_partial_f32 if partial
+                   else lib.rbf_forward_f32)
+        rc = forward(
             x.data_ptr(), c_packed, lb, ub, delta, w_packed, b,
             out.data_ptr(), scratch.data_ptr(),
             scratch.data_ptr() + 4 * parts * B * O, B, R, Kp, F, O, regions,
@@ -334,19 +358,32 @@ def _launch(x: torch.Tensor, ops: RBFOperands) -> torch.Tensor:
     return out
 
 
-def wcrbf_forward(x: torch.Tensor, ops: RBFOperands) -> torch.Tensor:
+def wcrbf_forward(x: torch.Tensor, ops: RBFOperands,
+                  partial: bool = False) -> torch.Tensor:
     """Fused WCRBF forward, ``(B, F) -> (B, O)``; ``x`` is pre-scaled by the
-    model's ``input_scale`` (see ``wcrbf_params_to_kernel``).
+    model's ``input_scale`` (see ``wcrbf_params_to_kernel``). ``partial``:
+    the forward of a shard of the regions, ``(B, O + 1)`` (module
+    docstring; ``finish_partial`` ends it).
 
     CUDA tensors launch the kernel (f32 only) or raise; CPU tensors take
     the plain version; other devices raise.
     """
     if x.device.type == "cuda":
-        return _launch(x, ops)
+        return _launch(x, ops, partial)
     if x.device.type == "cpu":
-        return wcrbf_forward_reference(x, ops)
+        return wcrbf_forward_reference(x, ops, partial)
     raise ValueError(f"wcrbf_forward runs on CUDA or CPU tensors, not "
                      f"{x.device.type}")
 
 
 wcrbf_forward.launches = 0
+
+
+def finish_partial(part: torch.Tensor, ops: RBFOperands) -> torch.Tensor:
+    """The sum over every shard of the partial forwards, ``(B, O + 1)`` ->
+    ``(B, O)``: divided by the gate sum (per-region heads, as the kernel's
+    own last launch divides) or plus the shared head's bias."""
+    O = part.shape[-1] - 1
+    if ops.per_region:
+        return part[:, :O] / (part[:, O:] + 1e-9)
+    return part[:, :O] + ops.b.to(part.dtype)

@@ -1,14 +1,16 @@
-"""Lattice data generation on one device.
+"""Lattice data generation, on one device or across the data axis of a mesh.
 
-Port of the one-device part of ``irbfn_tpu/parallel/datagen.py``: a grid
-spec becomes meshgrid rows ('ij' order, so the table layout matches the
-reference's), and ``solve_lattice`` runs a batched solver over them in
-chunks. On the card, chunk i's results are copied back into pinned host
-buffers while chunk i+1 is already queued, so the device does not wait for
-those copies. ``controls_block`` flattens a table's control sequences into
-the layout the nets are trained on. ``TableSolution`` is what a table keeps
-of an NMPC solution, and ``frenet_table`` assembles the on-disk table with
-its -999 sentinel rows. Sharding across cards is still to be ported.
+Port of ``irbfn_tpu/parallel/datagen.py``: a grid spec becomes meshgrid
+rows ('ij' order, so the table layout matches the reference's), and
+``solve_lattice`` runs a batched solver over them in chunks on one device;
+``solve_lattice_sharded`` splits every chunk over the ranks of the data axis
+(``parallel/mesh.py``) and ``all_gather``s the results, so that every rank
+returns the whole table. On the card, chunk i's results are copied back
+into pinned host buffers while chunk i+1 is already queued, so the device
+does not wait for those copies. ``controls_block`` flattens a table's
+control sequences into the layout the nets are trained on.
+``TableSolution`` is what a table keeps of an NMPC solution, and
+``frenet_table`` assembles the on-disk table with its -999 sentinel rows.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from irbfn_tpu_torch._device import resolve_device
 
@@ -79,6 +82,46 @@ def _to_host(t: torch.Tensor):
     return buf, event
 
 
+class _HostPipeline:
+    """The chunks' results on their way to the host: each dict of tensors
+    is copied into pinned buffers as it is queued, and waited for only
+    when more than ``PIPELINE_DEPTH`` are in flight, or at the end."""
+
+    def __init__(self, progress_fn=None):
+        self.outs, self.inflight = [], []
+        self.progress_fn = progress_fn
+
+    def put(self, result: dict, done: int):
+        self.inflight.append(({k: _to_host(v) for k, v in result.items()},
+                              done))
+        if len(self.inflight) > PIPELINE_DEPTH:
+            self._drain_one()
+
+    def _drain_one(self):
+        result, done = self.inflight.pop(0)
+        for _, event in result.values():
+            if event is not None:
+                event.synchronize()
+        self.outs.append({k: buf.numpy() for k, (buf, _) in result.items()})
+        if self.progress_fn is not None:
+            self.progress_fn(done)
+
+    def result(self, name: str) -> dict:
+        while self.inflight:
+            self._drain_one()
+        if not self.outs:
+            raise ValueError(f"{name} needs at least one row")
+        return {k: np.concatenate([o[k] for o in self.outs])
+                for k in self.outs[0]}
+
+
+def _to_device(rows: np.ndarray, device) -> torch.Tensor:
+    chunk = torch.from_numpy(np.ascontiguousarray(rows))
+    if device.type == "cuda":
+        return chunk.pin_memory().to(device, non_blocking=True)
+    return chunk.to(device)
+
+
 def solve_lattice(solve_fn: Callable, rows: np.ndarray,
                   batch_per_device: int = 65536, args=(),
                   device=None) -> dict:
@@ -96,31 +139,92 @@ def solve_lattice(solve_fn: Callable, rows: np.ndarray,
         dict of numpy arrays with leading dim N.
     """
     device = resolve_device(device)
-    outs, inflight = [], []
-
-    def drain_one():
-        result = inflight.pop(0)
-        for _, event in result.values():
-            if event is not None:
-                event.synchronize()
-        outs.append({k: buf.numpy() for k, (buf, _) in result.items()})
-
+    pipe = _HostPipeline()
     for start in range(0, rows.shape[0], batch_per_device):
-        chunk = torch.from_numpy(np.ascontiguousarray(
-            rows[start:start + batch_per_device]))
-        if device.type == "cuda":
-            chunk = chunk.pin_memory().to(device, non_blocking=True)
-        else:
-            chunk = chunk.to(device)
-        result = solve_fn(chunk, *args)
-        inflight.append({k: _to_host(v) for k, v in result.items()})
-        if len(inflight) > PIPELINE_DEPTH:
-            drain_one()
-    while inflight:
-        drain_one()
-    if not outs:
-        raise ValueError("solve_lattice needs at least one row")
-    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+        chunk = _to_device(rows[start:start + batch_per_device], device)
+        pipe.put(solve_fn(chunk, *args), start + chunk.shape[0])
+    return pipe.result("solve_lattice")
+
+
+def _gather_rows(t: torch.Tensor, sizes, group) -> torch.Tensor:
+    """The data axis' blocks of one chunk, in rank order: rank j holds
+    ``sizes[j]`` valid rows of ``t``. NCCL gathers equal sizes only, so
+    every block goes padded to ``sizes[0]`` (the largest) and comes back
+    trimmed; gloo gathers no bool, so bools travel as uint8."""
+    n = sizes[0]
+    if t.shape[0] < n:
+        t = torch.cat([t, t[-1:].expand((n - t.shape[0],) + t.shape[1:])])
+    send = (t.to(torch.uint8) if t.dtype == torch.bool else t).contiguous()
+    blocks = [torch.empty_like(send) for _ in sizes]
+    dist.all_gather(blocks, send, group=group)
+    out = torch.cat([b[:m] for b, m in zip(blocks, sizes)])
+    return out.to(torch.bool) if t.dtype == torch.bool else out
+
+
+def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
+                          batch_per_device: int = 65536,
+                          progress: bool = False, args=(), device=None):
+    """Run ``solve_fn`` over a lattice split across the mesh's data axis.
+
+    The lattice goes in chunks of ``D * batch_per_device`` rows for D ranks
+    on the data axis; data rank i solves rows ``[i*bpd, (i+1)*bpd)`` of each
+    chunk (``P(DATA_AXIS)``; the ranks of one expert group solve the same
+    rows), and the results are ``all_gather``ed over the data axis, so that
+    every rank returns the whole table in row order (``out_shardings`` =
+    replicated). Rank i's block of chunk c is block ``c*D + i`` of
+    ``solve_lattice`` at the same ``batch_per_device``: the same rows go to
+    the same solver, and at D = 1 the result is ``solve_lattice``'s bit for
+    bit. A rank whose block of the last chunk is empty solves the last row
+    alone and sends nothing of it.
+
+    Args:
+        solve_fn: maps ``(B, D)`` row tensors (plus ``*args``) to a dict of
+            ``(B, ...)`` tensors, or one tensor, on the rows' device.
+        rows: the full lattice ``(N, D)``, numpy, the same on every rank.
+        mesh: a ``parallel.mesh.Mesh`` (None: ``make_mesh(expert=1)``, all
+            ranks of the process group on the data axis, or a world of one).
+        batch_per_device: rows per rank per chunk.
+        progress: rank 0 prints rows done and the rate after each chunk.
+        args: extra operands passed through to ``solve_fn``.
+        device: where the solve runs (None: the mesh's device, or the card).
+    Returns:
+        dict of numpy arrays with leading dim N, or one array if
+        ``solve_fn`` returns a tensor.
+    """
+    import time
+
+    from irbfn_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+
+    if mesh is None:
+        mesh = make_mesh(expert=1, device=device)
+    device = mesh.device if device is None else resolve_device(device)
+    D, i = mesh.shape[DATA_AXIS], mesh.data_rank
+    group = mesh.group(DATA_AXIS)
+    n_total, bpd = rows.shape[0], int(batch_per_device)
+    t0 = time.perf_counter()
+
+    def report(done):
+        rate = done / max(time.perf_counter() - t0, 1e-9)
+        print(f"  lattice progress {done:,}/{n_total:,} ({rate:,.0f} rows/s)",
+              flush=True)
+
+    pipe = _HostPipeline(report if progress and mesh.rank == 0 else None)
+    bare = False
+    for start in range(0, n_total, D * bpd):
+        sizes = [min(max(n_total - start - j * bpd, 0), bpd)
+                 for j in range(D)]
+        mine = rows[start + i * bpd:start + i * bpd + sizes[i]]
+        result = solve_fn(_to_device(mine if sizes[i] else rows[-1:],
+                                     device), *args)
+        bare = torch.is_tensor(result)
+        if bare:
+            result = {"": result}
+        if group is not None:
+            result = {k: _gather_rows(v, sizes, group)
+                      for k, v in result.items()}
+        pipe.put(result, start + sum(sizes))
+    out = pipe.result("solve_lattice_sharded")
+    return out[""] if bare else out
 
 
 class TableSolution(NamedTuple):

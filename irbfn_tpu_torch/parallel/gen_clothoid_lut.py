@@ -1,4 +1,4 @@
-"""Clothoid G1-Hermite LUT generation on one card.
+"""Clothoid G1-Hermite LUT generation on the cards.
 
 Port of ``scripts/gen_clothoid_lut.py``, with the same flags, prints and npz,
 plus ``--device`` and ``--batch_per_device``. The 3-D
@@ -9,6 +9,13 @@ elementwise passes over a (rows, 48) quadrature-node axis.
 Output npz (the reference's layout): ``lut`` (nx, ny, nt, 5) =
 [k0, k1, k2, k3, s] and the axis arrays ``xlut``, ``ylut``, ``tlut``, as
 ``<save_path>/lut_allkappa<run_tag>.npz``.
+
+Under ``torchrun`` (``WORLD_SIZE`` set) every process is one rank of a
+process group read from the environment, one card each: the lattice splits
+over the ranks (``datagen.py:solve_lattice_sharded``), every rank gathers
+the whole table, and rank 0 alone prints and writes the files. Run alone it
+is a world of one, the one-card run:
+``torchrun --nproc_per_node N -m irbfn_tpu_torch.parallel.gen_clothoid_lut ...``.
 
 Usage: ``python -m irbfn_tpu_torch.parallel.gen_clothoid_lut
 [--save_path DIR] [--dx 0.1 --dy 0.1 --dt 0.02] [--device cuda]``
@@ -24,7 +31,9 @@ import torch
 
 from irbfn_tpu_torch._device import resolve_device, wait_clock
 from irbfn_tpu_torch.parallel.datagen import (GridSpec, build_lattice,
-                                              solve_lattice)
+                                              solve_lattice_sharded)
+from irbfn_tpu_torch.parallel.launch import from_environment
+from irbfn_tpu_torch.parallel.mesh import make_mesh
 from irbfn_tpu_torch.solvers.clothoid import solve_g1_hermite
 from irbfn_tpu_torch.utils.args import add_clothoid_grid_args, add_io_args
 
@@ -34,7 +43,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     add_clothoid_grid_args(p)
     add_io_args(p)
     p.add_argument("--batch_per_device", type=int, default=1 << 20,
-                   help="goals per chunk")
+                   help="goals per chunk (per rank)")
     p.add_argument("--device", type=str, default=None,
                    help="where the solves run (default: the card)")
     return p.parse_args(argv)
@@ -64,8 +73,9 @@ def solve_table(args, device=None) -> dict:
     print(f"lattice: {goals.shape[0]:,} goals "
           f"({'x'.join(str(g.num) for g in grid)})", flush=True)
     t0 = wait_clock(device)
-    out = solve_lattice(_solve_chunk, goals,
-                        batch_per_device=args.batch_per_device, device=device)
+    out = solve_lattice_sharded(_solve_chunk, goals,
+                                mesh=make_mesh(device=device),
+                                batch_per_device=args.batch_per_device)
     dt = wait_clock(device) - t0
     print(f"solved in {dt:.2f}s -> {goals.shape[0] / dt:,.0f} solves/s",
           flush=True)
@@ -84,10 +94,12 @@ def save_lut(path: str, grid, params: np.ndarray):
 
 def main(argv=None) -> str:
     args = parse_args(argv)
-    res = solve_table(args)
-    out = lut_path(args)
-    save_lut(out, res["grid"], res["params"])
-    print(f"saved {out}")
+    with from_environment(args.device) as rank:
+        res = solve_table(args)
+        out = lut_path(args)
+        if rank == 0:
+            save_lut(out, res["grid"], res["params"])
+        print(f"saved {out}")
     return out
 
 

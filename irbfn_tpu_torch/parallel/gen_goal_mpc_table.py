@@ -1,4 +1,4 @@
-"""Goal-MPC table generation: the reference's goal lattice on one card.
+"""Goal-MPC table generation: the reference's goal lattice on the cards.
 
 Port of ``scripts/gen_goal_mpc_table.py``, with the same flags, defaults and
 npz. The lattice is a 5-D grid over v_car x x_goal x y_goal x t_goal x
@@ -12,6 +12,13 @@ y_goal, t_goal, v_goal), ``outputs`` (N, 2) = (speed, steer) with -999
 where a row did not converge, ``valid`` = the convergence mask, plus the
 grid metadata ``lows``, ``highs``, ``nums`` and ``dims``.
 
+Under ``torchrun`` (``WORLD_SIZE`` set) every process is one rank of a
+process group read from the environment, one card each: the lattice splits
+over the ranks (``datagen.py:solve_lattice_sharded``), every rank gathers
+the whole table, and rank 0 alone prints and writes the files. Run alone it
+is a world of one, the one-card run:
+``torchrun --nproc_per_node N -m irbfn_tpu_torch.parallel.gen_goal_mpc_table ...``.
+
 Usage: ``python -m irbfn_tpu_torch.parallel.gen_goal_mpc_table
 [--save_path DIR] [--iters 600] [--chunk 262144] [--device cuda]``
 """
@@ -24,7 +31,10 @@ import time
 import numpy as np
 
 from irbfn_tpu_torch.parallel.datagen import GridSpec, build_lattice
-from irbfn_tpu_torch.solvers.goal_mpc import GoalMPCConfig, solve_goal_lattice
+from irbfn_tpu_torch.parallel.launch import from_environment
+from irbfn_tpu_torch.parallel.mesh import make_mesh
+from irbfn_tpu_torch.solvers.goal_mpc import (GoalMPCConfig,
+                                              solve_goal_lattice_sharded)
 
 DIMS = ("v_car", "x_goal", "y_goal", "t_goal", "v_goal")
 # the reference grid, arange semantics (inclusive endpoint via +step, the
@@ -45,7 +55,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--iters", type=int, default=600,
                    help="fixed ADMM sweeps")
     p.add_argument("--chunk", type=int, default=262144,
-                   help="goals per kernel launch")
+                   help="goals per kernel launch (per rank)")
     p.add_argument("--dtype", choices=["f32", "f64"], default="f32",
                    help="f64 runs the plain version: use it with --device "
                         "cpu (the kernel is f32)")
@@ -79,15 +89,16 @@ def solve_table(args) -> dict:
     print(f"lattice: {len(v_vals)} v_car families x {G:,} goals = "
           f"{n_total:,} QPs", flush=True)
     cfg = GoalMPCConfig()
+    mesh = make_mesh(device=args.device)
     speed = np.empty((len(v_vals), G), np.float32)
     steer = np.empty((len(v_vals), G), np.float32)
     valid = np.empty((len(v_vals), G), bool)
     t0 = time.perf_counter()
     for vi, v in enumerate(v_vals):
         v = float(np.asarray(v, goals.dtype))
-        out = solve_goal_lattice(v, goals, cfg, iters=args.iters,
-                                 batch_per_device=min(args.chunk, G),
-                                 device=args.device)
+        out = solve_goal_lattice_sharded(v, goals, cfg, iters=args.iters,
+                                         mesh=mesh,
+                                         batch_per_device=min(args.chunk, G))
         speed[vi] = out["speed"]
         steer[vi] = out["steer"]
         valid[vi] = out["converged"]
@@ -124,11 +135,13 @@ def table_arrays(res: dict) -> dict:
 
 def main(argv=None) -> str:
     args = parse_args(argv)
-    res = solve_table(args)
-    name = "x".join(str(g.num) for g in res["grid"])
-    out = f"{args.save_path}/goal_mpc_table_{name}{args.run_tag}.npz"
-    np.savez_compressed(out, **table_arrays(res))
-    print(f"saved {out}")
+    with from_environment(args.device) as rank:
+        res = solve_table(args)
+        name = "x".join(str(g.num) for g in res["grid"])
+        out = f"{args.save_path}/goal_mpc_table_{name}{args.run_tag}.npz"
+        if rank == 0:
+            np.savez_compressed(out, **table_arrays(res))
+        print(f"saved {out}")
     return out
 
 

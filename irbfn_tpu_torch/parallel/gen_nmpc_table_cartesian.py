@@ -1,4 +1,4 @@
-"""Cartesian NMPC table generation on one card.
+"""Cartesian NMPC table generation on the cards.
 
 Port of ``scripts/gen_nmpc_table_cartesian.py``, with the same flags, prints
 and npz, plus ``--device`` and ``--dtype``. The 7-D lattice
@@ -16,6 +16,13 @@ Output npz (reference layout): ``inputs`` (N, 7), ``outputs`` (N, 2T) =
 solve is flagged, and ``valid``, as
 ``<save_path>/cart_table_<counts>_mu<mu>_cs<cs><run_tag>.npz``.
 
+Under ``torchrun`` (``WORLD_SIZE`` set) every process is one rank of a
+process group read from the environment, one card each: the lattice splits
+over the ranks (``datagen.py:solve_lattice_sharded``), every rank gathers
+the whole table, and rank 0 alone prints and writes the files. Run alone it
+is a world of one, the one-card run:
+``torchrun --nproc_per_node N -m irbfn_tpu_torch.parallel.gen_nmpc_table_cartesian ...``.
+
 Usage: ``python -m irbfn_tpu_torch.parallel.gen_nmpc_table_cartesian
 [--d_x_goal 0.5 ...] [--save_path DIR] [--device cuda]``
 """
@@ -31,7 +38,10 @@ import torch
 from irbfn_tpu_torch._device import resolve_device, wait_clock
 from irbfn_tpu_torch.dynamics.params import f1tenth_params
 from irbfn_tpu_torch.parallel.datagen import (GridSpec, build_lattice,
-                                              save_table, solve_lattice)
+                                              save_table,
+                                              solve_lattice_sharded)
+from irbfn_tpu_torch.parallel.launch import from_environment
+from irbfn_tpu_torch.parallel.mesh import make_mesh
 from irbfn_tpu_torch.solvers.nmpc import (NMPCConfig, cartesian_config,
                                           solve_cartesian_point)
 from irbfn_tpu_torch.utils.args import add_io_args, add_vehicle_args
@@ -120,11 +130,12 @@ def solve_table(args, device=None, cfg: NMPCConfig = None) -> dict:
                     "feasible": s.feasible}
         return fn
 
+    mesh = make_mesh(device=device)
+
     def run(c, r):
         t0 = wait_clock(device)
-        out = solve_lattice(solver(c), r,
-                            batch_per_device=args.batch_per_device,
-                            device=device)
+        out = solve_lattice_sharded(solver(c), r, mesh=mesh,
+                                    batch_per_device=args.batch_per_device)
         return TableFields(out), wait_clock(device) - t0
 
     touched = np.zeros(n, bool)
@@ -188,10 +199,12 @@ def cartesian_table(rows: np.ndarray, sol) -> dict:
 
 def main(argv=None) -> str:
     args = parse_args(argv)
-    res = solve_table(args)
-    out = table_name(args, res["grid"])
-    save_table(out, cartesian_table(res["rows"], res["sol"]))
-    print(f"saved {out}")
+    with from_environment(args.device) as rank:
+        res = solve_table(args)
+        out = table_name(args, res["grid"])
+        if rank == 0:
+            save_table(out, cartesian_table(res["rows"], res["sol"]))
+        print(f"saved {out}")
     return out
 
 

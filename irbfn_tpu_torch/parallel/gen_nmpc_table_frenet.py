@@ -1,4 +1,4 @@
-"""Frenet NMPC table generation on one card.
+"""Frenet NMPC table generation on the cards.
 
 Port of ``scripts/gen_nmpc_table_frenet.py``, with the same flags, prints
 and npz file name, plus ``--device`` and ``--dtype``. The 8-D state lattice
@@ -14,6 +14,13 @@ constraint violation under their tolerances) does not depend on the budget.
 Rows the cheap pass certifies are final; only the flagged rows pay the full
 budget, and what that pass still flags is re-solved once more with
 ``--resolve_factor`` times the iterations and two more AL rounds.
+
+Under ``torchrun`` (``WORLD_SIZE`` set) every process is one rank of a
+process group read from the environment, one card each: the lattice splits
+over the ranks (``datagen.py:solve_lattice_sharded``), every rank gathers
+the whole table, and rank 0 alone prints and writes the files. Run alone it
+is a world of one, the one-card run:
+``torchrun --nproc_per_node N -m irbfn_tpu_torch.parallel.gen_nmpc_table_frenet ...``.
 
 Usage: ``python -m irbfn_tpu_torch.parallel.gen_nmpc_table_frenet
 [--save_path DIR] [--batch_per_device 8192] [--device cuda]``
@@ -31,7 +38,10 @@ from irbfn_tpu_torch._device import resolve_device, wait_clock
 from irbfn_tpu_torch.dynamics.params import fullscale_params
 from irbfn_tpu_torch.parallel.datagen import (GridSpec, TableSolution,
                                               build_lattice, frenet_table,
-                                              save_table, solve_lattice)
+                                              save_table,
+                                              solve_lattice_sharded)
+from irbfn_tpu_torch.parallel.launch import from_environment
+from irbfn_tpu_torch.parallel.mesh import make_mesh
 from irbfn_tpu_torch.solvers.nmpc import NMPCConfig, solve_lattice_point
 from irbfn_tpu_torch.utils.args import (add_frenet_grid_args, add_io_args,
                                         add_vehicle_args)
@@ -132,10 +142,13 @@ def solve_table(args, device=None, cfg: NMPCConfig = NMPCConfig()) -> list:
         cfg, gn_iters=cfg.gn_iters * max(args.resolve_factor, 1),
         al_outer=cfg.al_outer + 2))
 
+    mesh = make_mesh(device=device)
+
     def run(fn, r, params):
         t0 = wait_clock(device)
-        out = solve_lattice(fn, r, batch_per_device=args.batch_per_device,
-                            args=(params,), device=device)
+        out = solve_lattice_sharded(fn, r, mesh=mesh,
+                                    batch_per_device=args.batch_per_device,
+                                    args=(params,))
         return TableSolution(**out), wait_clock(device) - t0
 
     def resolve_flagged(sol, fn, params, tag, touched):
@@ -203,12 +216,13 @@ def solve_table(args, device=None, cfg: NMPCConfig = NMPCConfig()) -> list:
 def main(argv=None) -> list:
     args = parse_args(argv)
     outs = []
-    for res in solve_table(args):
-        table = frenet_table(res["rows"], res["sol"])
-        out = table_name(args, res["grid"], res["mu"])
-        save_table(out, table)
-        print(f"saved {out}")
-        outs.append(out)
+    with from_environment(args.device) as rank:
+        for res in solve_table(args):
+            out = table_name(args, res["grid"], res["mu"])
+            if rank == 0:
+                save_table(out, frenet_table(res["rows"], res["sol"]))
+            print(f"saved {out}")
+            outs.append(out)
     return outs
 
 

@@ -12,6 +12,13 @@ table's own layout). A table of 7-wide inputs is a cartesian table
 solver with the F1TENTH-scale car, and its (N, 2T) outputs patched (the
 JAX package's script reads Frenet tables only).
 
+Under ``torchrun`` (``WORLD_SIZE`` set) every process is one rank of a
+process group read from the environment, one card each: the flagged rows split
+over the ranks (``datagen.py:solve_lattice_sharded``), every rank gathers
+every re-solved row, and rank 0 alone prints and writes the table. Run alone it
+is a world of one, the one-card run:
+``torchrun --nproc_per_node N -m irbfn_tpu_torch.parallel.patch_table_stragglers ...``.
+
 Usage: ``python -m irbfn_tpu_torch.parallel.patch_table_stragglers
 --npz_path TABLE [--out PATCHED] [--resolve_factor 4] [--device cuda]``
 """
@@ -27,7 +34,10 @@ import torch
 
 from irbfn_tpu_torch._device import resolve_device, wait_clock
 from irbfn_tpu_torch.dynamics.params import f1tenth_params, fullscale_params
-from irbfn_tpu_torch.parallel.datagen import TableSolution, solve_lattice
+from irbfn_tpu_torch.parallel.datagen import (TableSolution,
+                                              solve_lattice_sharded)
+from irbfn_tpu_torch.parallel.launch import from_environment
+from irbfn_tpu_torch.parallel.mesh import make_mesh
 from irbfn_tpu_torch.solvers.nmpc import (NMPCConfig, cartesian_config,
                                           solve_cartesian_point,
                                           solve_lattice_point)
@@ -89,9 +99,9 @@ def patch(args, device=None, cfg: NMPCConfig = None) -> dict:
     rows = data["inputs"][bad].astype(np.float32 if args.dtype == "f32"
                                       else np.float64)
     t0 = wait_clock(device)
-    sol = solve_lattice(solve_hard, rows,
-                        batch_per_device=args.batch_per_device,
-                        device=device)
+    sol = solve_lattice_sharded(solve_hard, rows,
+                                mesh=make_mesh(device=device),
+                                batch_per_device=args.batch_per_device)
     dt = wait_clock(device) - t0
     rec = sol["feasible"]
     print(f"re-solve ({args.resolve_factor}x budget): recovered "
@@ -111,13 +121,15 @@ def patch(args, device=None, cfg: NMPCConfig = None) -> dict:
 
 def main(argv=None) -> str:
     args = parse_args(argv)
-    res = patch(args)
-    if not res["bad"].size:
-        return args.npz_path
-    out = args.out or args.npz_path
-    t0 = time.time()
-    np.savez(out, **res["data"])
-    print(f"saved {out} in {time.time() - t0:.0f}s")
+    with from_environment(args.device) as rank:
+        res = patch(args)
+        if not res["bad"].size:
+            return args.npz_path
+        out = args.out or args.npz_path
+        t0 = time.time()
+        if rank == 0:
+            np.savez(out, **res["data"])
+        print(f"saved {out} in {time.time() - t0:.0f}s")
     return out
 
 

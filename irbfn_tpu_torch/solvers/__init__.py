@@ -17,6 +17,7 @@ from irbfn_tpu_torch.solvers.goal_mpc import (
     condensed_family,
     solve_goal_family,
     solve_goal_lattice,
+    solve_goal_lattice_sharded,
     solve_goal_mpc,
     solve_tracking_mpc,
 )
@@ -44,6 +45,7 @@ __all__ = ["ClothoidSolution", "solve_g1_hermite", "solve_g1_lattice",
            "wrap_angle", "LMResult", "levenberg_marquardt",
            "GoalMPCConfig", "GoalMPCSolution", "GoalQPFamily",
            "condensed_family", "solve_goal_family", "solve_goal_lattice",
+           "solve_goal_lattice_sharded",
            "solve_goal_mpc", "solve_tracking_mpc", "NMPCConfig", "NMPCSolution",
            "cartesian_config", "kinematic_config", "solve_cartesian_point",
            "solve_lattice_multi_params", "solve_lattice_point",

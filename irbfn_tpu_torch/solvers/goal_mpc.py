@@ -1,7 +1,8 @@
 """Goal-reaching kinematic MPC as a condensed box QP, batched over families.
 
 Port of ``irbfn_tpu/solvers/goal_mpc.py`` (the goal family, the row solve,
-the one-card lattice solve and the LTV tracking MPC). Per problem: state [x, y, v, yaw] over T
+the lattice solve on one card or across the mesh's data axis, and the LTV
+tracking MPC). Per problem: state [x, y, v, yaw] over T
 steps, controls [accel, steer] over T steps, dynamics linearised at
 (v = v_car, yaw = 0, steer = 0), a quadratic goal-tracking cost with control
 and control-difference penalties, and boxed steering, acceleration, speed
@@ -291,6 +292,31 @@ def solve_goal_lattice(v_car, goals, cfg: GoalMPCConfig = GoalMPCConfig(),
 
     return solve_lattice(fn, goals, batch_per_device=batch_per_device,
                          args=(float(v_car),), device=device)
+
+
+def solve_goal_lattice_sharded(v_car, goals,
+                               cfg: GoalMPCConfig = GoalMPCConfig(),
+                               iters: int = 1200, mesh=None,
+                               batch_per_device: int = 262144,
+                               progress: bool = False, device=None) -> dict:
+    """``solve_goal_lattice`` across the mesh's data axis
+    (``parallel/datagen.py:solve_lattice_sharded``): each rank solves its
+    ``batch_per_device`` goals of every chunk, one ADMM launch of the family
+    variant, with the family operands its own; no collective runs inside
+    the sweeps. The table columns {speed, steer, converged} (G,) are
+    gathered, so that every rank returns all of them; at one rank they are
+    ``solve_goal_lattice``'s bit for bit."""
+    from irbfn_tpu_torch.parallel.datagen import solve_lattice_sharded
+
+    def fn(g, v):
+        sol = solve_goal_family(v, g, cfg, iters=iters)
+        return {"speed": sol.speed, "steer": sol.steer,
+                "converged": sol.converged}
+
+    return solve_lattice_sharded(fn, goals, mesh=mesh,
+                                 batch_per_device=batch_per_device,
+                                 progress=progress, args=(float(v_car),),
+                                 device=device)
 
 
 def solve_tracking_mpc(x0, ref_traj, path_predict,

@@ -1,6 +1,6 @@
 """Training loop and losses for the WCRBF model family.
 
-Port of ``irbfn_tpu/train/trainer.py`` (without its mesh branch):
+Port of ``irbfn_tpu/train/trainer.py``:
 
 - ``pred`` loss: L1 between predicted and oracle control sequences;
 - ``oneint`` loss: L1 between one-step-integrated states under predicted vs
@@ -9,7 +9,10 @@ Port of ``irbfn_tpu/train/trainer.py`` (without its mesh branch):
 - ``cluster`` loss: softmax cross-entropy on the gate logits;
 - gradient clipping by global norm, then Adam, optionally with a cosine
   decay of the learning rate to lr/10;
-- mirror augmentation of the Frenet and the cartesian table.
+- mirror augmentation of the Frenet and the cartesian table;
+- the DP x EP step over a (data, expert) mesh (``parallel/mesh.py``): each
+  data rank takes its contiguous rows of a batch, each expert rank holds its
+  regions of the core, and the gradients are those of the global mean loss.
 
 A loss is ``loss_fn(model, x, y, [extra,] dyn_params) -> (loss, parts)``
 and differentiates through the model's module path
@@ -26,6 +29,18 @@ and the clip comes before the step. The clip is the JAX package's rule
 (``clip_by_global_norm_`` below) and not ``clip_grad_norm_``, which divides
 by ``norm + 1e-6``: with it, five clipped f64 steps at lr 1e-2 ended 7e-8
 away from the JAX package's weights.
+
+The mesh step writes out what XLA inserts for JAX's sharded step. Every rank
+back-propagates its own loss over ``mesh.size``. The expert ``all_reduce``
+of the forward sums the gradients of its output over the expert group in
+its backward (``models/wcrbf.py:expert_sum``), so the expert ranks' equal
+losses are counted once each; a rank's gradient is then its share of the
+gradient of the global mean loss. The shares are summed over the ranks that
+hold the parameter: over the whole world for a replicated one (heads and
+gate layers, whose rows each expert rank touches for its own regions only),
+over the data axis for a sharded one (``centers``, ``log_sigs``). The clip
+reads the norm of the whole parameter set: the sharded parameters' squared
+norms summed over the expert group, the replicated ones counted once.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from irbfn_tpu_torch._device import resolve_device
 from irbfn_tpu_torch.dynamics.frenet import frenet_onestep, integrate_frenet
@@ -46,14 +62,26 @@ from irbfn_tpu_torch.sim.track import wrap_angle
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float, sharded=None,
+                         group=None) -> torch.Tensor:
     """Scale the gradients of ``params`` in place so that their global
     2-norm is at most ``max_norm``: unchanged when the norm is below it,
     else ``g / norm * max_norm``. Returns the norm (a tensor: nothing here
-    waits for the device)."""
+    waits for the device). With an expert ``group``, ``sharded[i]`` marks
+    the parameters each rank holds a shard of: their squared norms are
+    summed over the group, the others counted once."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    if group is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    else:
+        flags = [f for p, f in zip(params, sharded) if p.grad is not None]
+        sq = torch.stack([torch.linalg.vector_norm(g) ** 2 for g in grads])
+        mask = torch.tensor(flags, device=sq.device)
+        part = torch.where(mask, sq, torch.zeros_like(sq)).sum()
+        dist.all_reduce(part, group=group)
+        norm = torch.sqrt(torch.where(mask, torch.zeros_like(sq), sq).sum()
+                          + part)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:
@@ -71,7 +99,10 @@ class Trainer:
                  decay_steps: Optional[int] = None):
         self.model = model
         self.max_grad_norm = float(max_grad_norm)
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
         self.optimizer = torch.optim.Adam(self.params, lr=lr,
                                           betas=(0.9, 0.999), eps=1e-8)
         self.scheduler = None
@@ -85,14 +116,39 @@ class Trainer:
                 self.optimizer, factor)
         self.step_count = 0
 
-    def apply_gradients(self):
+    def apply_gradients(self, mesh=None):
         """Clip the accumulated gradients by their global norm, then one
-        Adam step (and one step of the schedule)."""
-        clip_by_global_norm_(self.params, self.max_grad_norm)
+        Adam step (and one step of the schedule). With a ``mesh``, the
+        gradients are first summed over the ranks that hold each parameter
+        (module docstring). Returns the norm."""
+        if mesh is None or mesh.group() is None:
+            norm = clip_by_global_norm_(self.params, self.max_grad_norm)
+        else:
+            norm = self._reduce_and_clip(mesh)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
         self.step_count += 1
+        return norm
+
+    def _reduce_and_clip(self, mesh):
+        from irbfn_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
+                                                   SHARDED,
+                                                   wcrbf_param_sharding)
+
+        specs = wcrbf_param_sharding(mesh)(self.model)
+        held = getattr(self.model, "expert_shard", None) is not None
+        sharded = [held and specs[n] == SHARDED for n in self.names]
+        with torch.no_grad():
+            for p, s in zip(self.params, sharded):
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                dist.all_reduce(p.grad,
+                                group=mesh.group(DATA_AXIS if s else None))
+        group = (mesh.group(EXPERT_AXIS) if held
+                 and mesh.shape[EXPERT_AXIS] > 1 else None)
+        return clip_by_global_norm_(self.params, self.max_grad_norm,
+                                    sharded, group)
 
 
 def create_trainer(model, lr: float = 1e-3, max_grad_norm: float = 1.0,
@@ -258,18 +314,29 @@ class StepMetrics(NamedTuple):
     cluster_loss: Optional[torch.Tensor] = None
 
 
-def make_train_step(loss_fn: Callable, dyn_params):
+def make_train_step(loss_fn: Callable, dyn_params, mesh=None):
     """Build a train step ``(trainer, x, y, *extra) -> StepMetrics``: the
     loss and its gradient through the model's module path, the clip, one
     Adam step. The metrics are detached tensors on the model's device:
-    reading one as a float waits for the device."""
+    reading one as a float waits for the device.
+
+    With a ``mesh``, the step runs DP x EP on every rank of it: ``x``, ``y``
+    and ``extra`` are this rank's rows of the batch
+    (``parallel.mesh.data_sharding(mesh)``), the model is sharded
+    (``shard_params``) or whole, and the gradients and metrics are those of
+    the global mean loss (module docstring)."""
 
     def step(trainer: Trainer, x, y, *extra) -> StepMetrics:
         trainer.optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss, aux = loss_fn(trainer.model, x, y, *extra, dyn_params)
-        loss.backward()
-        trainer.apply_gradients()
+        if mesh is None:
+            loss.backward()
+            trainer.apply_gradients()
+        else:
+            (loss / mesh.size).backward()
+            trainer.apply_gradients(mesh)
+            loss, aux = _data_mean([loss, *aux], mesh)
         aux = [a.detach() for a in aux]
         return StepMetrics(loss.detach(), aux[0], aux[1],
                            aux[2] if len(aux) > 2 else None)
@@ -277,11 +344,24 @@ def make_train_step(loss_fn: Callable, dyn_params):
     return step
 
 
+def _data_mean(values, mesh):
+    """Each rank's mean over its rows -> the mean over the whole batch
+    (the ranks of the data axis hold equal shares); (first, rest)."""
+    from irbfn_tpu_torch.parallel.mesh import DATA_AXIS
+
+    v = torch.stack([a.detach() for a in values])
+    group = mesh.group(DATA_AXIS)
+    if group is not None:
+        dist.all_reduce(v, group=group)
+        v = v / mesh.shape[DATA_AXIS]
+    return v[0], list(v[1:])
+
+
 def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
                  batch_size: int, epochs: int, seed: int, extra=None,
                  log_fn=None, checkpoint_fn=None,
                  checkpoint_every: int = 100, log_every: int = 25,
-                 device=None, max_steps: Optional[int] = None):
+                 device=None, max_steps: Optional[int] = None, mesh=None):
     """Permutation mini-batch epochs.
 
     The table goes to the device ONCE (tensors already there are used as
@@ -293,6 +373,9 @@ def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
     so a step does not. ``checkpoint_fn(trainer, epoch)`` fires every
     ``checkpoint_every`` epochs and after the last. ``max_steps`` ends the
     run after that many steps in all (the last epoch is then partial).
+    With a ``mesh`` (and a ``step_fn`` made for it), every rank draws the
+    same batches and hands its own rows of each to the step
+    (``data_sharding``); the batch size must divide by the data axis.
 
     Returns ``(trainer, mean loss of the last epoch)``.
     """
@@ -305,6 +388,11 @@ def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
     n = inputs.shape[0]
     batch_size = min(batch_size, n)  # tables smaller than one batch
     steps = max(1, n // batch_size)
+    place = lambda idx: idx  # noqa: E731
+    if mesh is not None:
+        from irbfn_tpu_torch.parallel.mesh import data_sharding
+
+        place = data_sharding(mesh)  # raises on a batch it cannot split
     np_rng = np.random.default_rng(int(seed))
     losses = []
     done = 0
@@ -321,7 +409,7 @@ def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
             if max_steps is not None and done >= max_steps:
                 break
             done += 1
-            idx = perms[b]
+            idx = place(perms[b])
             args = (inputs[idx], outputs[idx])
             if extra is not None:
                 args += (extra[idx],)
