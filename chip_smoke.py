@@ -26,9 +26,11 @@ quadrotor pipeline (its net ``quadrotor_pr`` through ``rbf_forward``), the
 LTV tracking MPC (``admm_solve``), lidar and multi-agent racing, the
 overtake demo, PPO and the closed-loop demos; and multi-device: the
 region-sharded (expert-parallel) forward through the kernel's partial
-mode, the sharded lattice solves and the DP x EP dry run on NCCL. Each
+mode, the sharded lattice solves and the DP x EP dry run on NCCL; and
+the last tools of the JAX package: the raceline makers, the oracle
+generator, the TrajGen harness and the NMPC roofline's ceilings. Each
 phase prints one line
-(the entry points of phases 28-39 write their own output to
+(the entry points of phases 28-39 and 43 write their own output to
 ``torch_runs/chip_smoke_logs/phase<n>_*.log``), and any failure exits
 non-zero:
 
@@ -193,14 +195,31 @@ non-zero:
 41. the sharded datagen on NCCL at world 1: one 2,642,368-goal family of
     phase 10 through ``solve_goal_lattice_sharded`` (twice) and 65,536 rows
     of the reference Frenet lattice through ``solve_lattice_sharded`` at
-    the dry run's NMPC budget, each bit for bit the one-device solve's
-    (the rows solved once before, which the first NMPC solve of a process
-    needs: it is not bit for bit the later ones);
+    the dry run's NMPC budget, each bit for bit the one-device solve's;
+    and the same rows solved twice in a fresh spawned process, its first
+    NMPC solve and its second bit for bit the solves here (fault P5 of
+    ROADMAP.md, repaired);
 42. the dry run: ``graft_entry.entry()``'s forward (one launch),
     ``dryrun_multichip`` over every visible card on NCCL, the DP x EP step
     at ``frenet_wide_pr1``'s width (batch 8,192) on the world of one against
     the plain step, and, with more than one card visible, NCCL ranks on up
-    to 8 of them against the one-card EP forward and goal family.
+    to 8 of them against the one-card EP forward and goal family;
+
+43. the raceline tools on a pinched oval bundle written in the run
+    (``rasterize_track`` on ``oval_track``, ``save_map_yaml``, centerline
+    and raceline CSVs): ``make_feasible_raceline`` in pure push mode and
+    ``min_curv_raceline``, each on the card and with ``--device cpu``;
+    every point clears the margin on the card's map, the two CSVs agree;
+44. the oracle generator: the perturbation-optimality gold derived on the
+    card in f64 (2 rows, 60 perturbations each, none improving) against the
+    committed ``tests/oracles/nmpc_pert_gold.npz``;
+45. the TrajGen frequency of the IROS-2023 paper at B = 500 and 2^14: the
+    clothoid solver, solver + integration, and ``clothoid_pr`` through
+    ``rbf_forward`` (held against its plain version, launches counted);
+46. the card's measured f32 FMA ceiling (the probe
+    ``ops/csrc/fma_ceiling.cu``, held against its plain chain; not a TPU
+    kernel's counterpart) and HBM read rate, and an NMPC solve's achieved
+    share of the FMA ceiling (operations tallied by ``count_ops``).
 
 The last two lines are a JSON object naming both kernels with their
 launches, errors, times and bounds, and the line
@@ -544,8 +563,9 @@ def ptxas_summary(log: str) -> str:
             k = re.search(r"\d+((?:rbf|admm)\w*?kernel\w*?)I(\w+?)EEv", name)
             name = (f"{k.group(1)}<"
                     f"{', '.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
-                    if k else re.sub(r"^.*?\d+((?:rbf|admm)_[a-z_]*kernel)E.*",
-                                     r"\1", name))
+                    if k else re.sub(
+                        r"^.*?\d+((?:rbf|admm|fma)_[a-z_]*kernel)E.*",
+                        r"\1", name))
         elif "spill" in line:
             s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -562,21 +582,26 @@ def phase_build():
     together; registers and spills of every kernel, which must be none."""
     from irbfn_tpu_torch import native
     from irbfn_tpu_torch.ops import KERNELS as OPS, build_kernel
+    from irbfn_tpu_torch.ops import fma_ceiling
 
     def timed_native():
         t0 = time.perf_counter()
         return native.build(), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(OPS) + 1) as pool:
+    with ThreadPoolExecutor(len(OPS) + 2) as pool:
         lib = pool.submit(timed_native)
+        probe = pool.submit(fma_ceiling.build_kernel)
         results = dict(zip(OPS, pool.map(build_kernel, OPS)))
         lib_path, lib_s = lib.result()
+        results["fma_ceiling"] = probe.result()
     print(f"build native module: {lib_path.name} in {lib_s:.2f} s (g++, the "
           f"port's copies of clothoid_oracle.cpp, table_io.cpp, edt.cpp)",
           flush=True)
     for name, res in results.items():
-        print(f"build {name}: {res.path.name} in {res.seconds:.2f} s nvcc"
-              f"{' (already built)' if res.seconds == 0.0 else ''}; "
+        what = (" (a measuring probe of phase 46, not a TPU kernel's "
+                "counterpart)" if name == "fma_ceiling" else "")
+        print(f"build {name}{what}: {res.path.name} in {res.seconds:.2f} s "
+              f"nvcc{' (already built)' if res.seconds == 0.0 else ''}; "
               f"{ptxas_summary(res.log)}", flush=True)
         spilled = [int(n) for n in re.findall(r"(\d+) bytes spill", res.log)]
         check(not any(spilled), f"{name} spills registers: {res.log}")
@@ -3594,23 +3619,84 @@ def _equal_tables(label, a, b):
     check(set(a) == set(b) and not bad, f"{label}: {bad} differ")
 
 
+def _frenet_table_fn():
+    """The table generator's per-chunk solve at the dry run's NMPC budget:
+    rows -> the table's columns."""
+    from irbfn_tpu_torch.parallel import TableSolution
+    from irbfn_tpu_torch.solvers import NMPCConfig, solve_lattice_point
+
+    cfg = NMPCConfig(**DRYRUN_NMPC)
+
+    def fn(r, pv):
+        return TableSolution.from_solution(solve_lattice_point(r, pv, cfg),
+                                           include_onehot=True)._asdict()
+
+    return fn
+
+
+def fresh_process_solves(rows_path: str, out_path: str, device: str):
+    """Run in a process of its own by ``_fresh_process_solves``: the rows
+    of ``rows_path`` through ``solve_lattice`` as phase 41 solves them,
+    twice (the process's first NMPC solve and its second), written to
+    ``out_path`` with the seconds of each."""
+    import torch
+
+    from irbfn_tpu_torch._device import wait_clock
+    from irbfn_tpu_torch.dynamics.params import fullscale_params
+    from irbfn_tpu_torch.parallel import solve_lattice
+
+    device = torch.device(device)
+    rows = np.load(rows_path)
+    params = fullscale_params(dtype=torch.float32, device=device)
+    out, secs = {}, []
+    for i in range(2):
+        t0 = wait_clock(device)
+        res = solve_lattice(_frenet_table_fn(), rows,
+                            batch_per_device=FRENET_SHARDED_BPD,
+                            args=(params,), device=device)
+        secs.append(wait_clock(device) - t0)
+        out.update({f"{i}/{k}": v for k, v in res.items()})
+    np.savez(out_path, seconds=np.asarray(secs), **out)
+
+
+def _fresh_process_solves(rows, device):
+    """``fresh_process_solves`` in a new Python process on ``device``: its
+    two solves' tables and seconds."""
+    with tempfile.TemporaryDirectory() as d:
+        rows_path, out_path = f"{d}/rows.npy", f"{d}/out.npz"
+        np.save(rows_path, rows)
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import sys; sys.path.insert(0, "
+             f"{ROOT!r}); import chip_smoke; chip_smoke."
+             f"fresh_process_solves({rows_path!r}, {out_path!r}, "
+             f"{str(device)!r})"],
+            capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0,
+              f"the fresh process's NMPC solves failed: {proc.stderr[-3000:]}")
+        with np.load(out_path) as z:
+            sols = [{k.split("/", 1)[1]: z[k] for k in z.files
+                     if k.startswith(f"{i}/")} for i in range(2)]
+            return sols, [float(t) for t in z["seconds"]]
+
+
 def phase_sharded_datagen(device, mesh, lattice_goals, phase10_family_s):
     """Phase 41: the sharded lattice solves on NCCL at world 1: one
     2,642,368-goal family of phase 10 through ``solve_goal_lattice_sharded``
     (the generator's 600 sweeps and 262,144-goal chunks) and 65,536 rows of
     the reference Frenet lattice through ``solve_lattice_sharded`` at the
-    dry run's NMPC budget, each bit for bit the one-device solve's."""
+    dry run's NMPC budget, each bit for bit the one-device solve's; and the
+    same Frenet rows solved twice in a fresh spawned process, its first
+    NMPC solve and its second bit for bit this process's (P5)."""
     import torch
 
     from irbfn_tpu_torch._device import wait_clock
     from irbfn_tpu_torch.dynamics.params import fullscale_params
-    from irbfn_tpu_torch.parallel import (FRENET_GRID, TableSolution,
-                                          build_lattice, solve_lattice,
+    from irbfn_tpu_torch.parallel import (FRENET_GRID, build_lattice,
+                                          solve_lattice,
                                           solve_lattice_sharded)
     from irbfn_tpu_torch.parallel import gen_goal_mpc_table as gen
     from irbfn_tpu_torch.solvers import (NMPCConfig, solve_goal_lattice,
-                                         solve_goal_lattice_sharded,
-                                         solve_lattice_point)
+                                         solve_goal_lattice_sharded)
 
     args = gen.parse_args(list(LATTICE_ARGS))
     G = len(lattice_goals)
@@ -3637,17 +3723,13 @@ def phase_sharded_datagen(device, mesh, lattice_goals, phase10_family_s):
     rows = lattice[np.sort(rng.choice(len(lattice), N_FRENET_SHARDED,
                                       replace=False))]
     del lattice
-    cfg = NMPCConfig(**DRYRUN_NMPC)
     params = fullscale_params(dtype=torch.float32, device=device)
-
-    def fn(r, pv):
-        return TableSolution.from_solution(solve_lattice_point(r, pv, cfg),
-                                           include_onehot=True)._asdict()
-
-    # three solves of the same rows: the first NMPC solve of a process is
-    # not bit for bit the later ones (reported, not held), the next two are
+    fn = _frenet_table_fn()
+    # the same rows solved in a fresh process (its first NMPC solve and its
+    # second: P5 of ROADMAP.md), then here, one device and sharded
+    fresh, t_fresh = _fresh_process_solves(rows, device)
     t_nmpc, f_runs = {}, {}
-    for name in ("earlier", "direct", "sharded"):
+    for name in ("direct", "sharded"):
         t0 = wait_clock(device)
         f_runs[name] = (
             solve_lattice_sharded(fn, rows, mesh=mesh, args=(params,),
@@ -3658,13 +3740,11 @@ def phase_sharded_datagen(device, mesh, lattice_goals, phase10_family_s):
         t_nmpc[name] = wait_clock(device) - t0
     _equal_tables("sharded Frenet rows vs solve_lattice", f_runs["sharded"],
                   f_runs["direct"])
-    moved = np.zeros(len(rows), bool)
-    d_max = 0.0
-    for k, v in f_runs["direct"].items():
-        d = np.abs(v.astype(np.float64)
-                   - f_runs["earlier"][k].astype(np.float64))
-        moved |= d.reshape(len(rows), -1).max(-1) > 0
-        d_max = max(d_max, float(d.max()))
+    _equal_tables("a fresh process's first NMPC solve vs its second",
+                  fresh[0], fresh[1])
+    _equal_tables("a fresh process's first NMPC solve vs this process's",
+                  fresh[0], f_runs["direct"])
+    cfg = NMPCConfig(**DRYRUN_NMPC)
     print(f"sharded datagen (NCCL, world 1, mesh {mesh.shape}): goal family "
           f"v_car={GOAL_V_CAR} ({G:,} goals, {args.iters} sweeps, chunks of "
           f"{kw['batch_per_device']:,}) sharded {t_sharded[0]:.3f} s, then "
@@ -3675,11 +3755,12 @@ def phase_sharded_datagen(device, mesh, lattice_goals, phase10_family_s):
           f"{N_FRENET_SHARDED:,} Frenet rows at gn_iters="
           f"{cfg.gn_iters}, al_outer={cfg.al_outer} (chunks of "
           f"{FRENET_SHARDED_BPD:,}) sharded {t_nmpc['sharded']:.2f} s, "
-          f"solve_lattice {t_nmpc['direct']:.2f} s, bit for bit equal, "
-          f"{100 * f_runs['sharded']['feasible'].mean():.1f}% feasible; an "
-          f"earlier solve of the same rows ({t_nmpc['earlier']:.2f} s) "
-          f"differs from them on {int(moved.sum())} rows, by up to "
-          f"{d_max:.3g}", flush=True)
+          f"solve_lattice {t_nmpc['direct']:.2f} s, "
+          f"{100 * f_runs['sharded']['feasible'].mean():.1f}% feasible; a "
+          f"fresh spawned process's first and second solves of the same "
+          f"rows ({t_fresh[0]:.2f} s with the process's CUDA set-up, "
+          f"{t_fresh[1]:.2f} s): all four bit for bit equal (P5)",
+          flush=True)
     return goal_launches
 
 
@@ -3831,6 +3912,263 @@ def multi_device(device, model, golden, lattice_goals, phase10_family_s):
     return dict(rbf=partial["launches"] + rbf, admm=admm, partial=partial)
 
 
+RACELINE_MARGIN = 0.35  # the tools' default clearance (m)
+# the card against --device cpu: the same f32 distance field read on the
+# card, where the bilinear read's multiply-adds may contract into FMAs that
+# the CPU rounds twice (the last f32 place, as JAX's XLA against the port on
+# the CPU: 1e-6 in the CSV there), carried on by the pushes; the CSV prints
+# 6 decimals
+TOL_RACELINE_CSV = 1e-4
+RACELINE_TOOLS = {  # tool -> its flags: the push binds, the boxes tighten
+    "make_feasible_raceline": ("--blend_centerline", "0"),
+    "min_curv_raceline": ("--n_points", "400"),
+}
+PERT_GOLD = os.path.join(ROOT, "tests", "oracles", "nmpc_pert_gold.npz")
+TOL_PERT_U = 1e-6  # the f64 solve against the JAX package's proven gold
+TRAJGEN_BATCHES = (500, 1 << 14)  # the script's default, and 2^14
+TRAJGEN_CALLS = 200
+# the FMA kernel against the plain chain on the card: 64 steps of the
+# plain version's two roundings against the kernel's one, relative to the
+# largest value
+TOL_FMA_REL = 1e-5
+CEILING_NMPC_ROWS = 65536  # the NMPC solve placed against the ceilings
+CEILING_NMPC = dict(gn_iters=3, al_outer=1)  # the profiler's short solve
+
+
+def _pinched_oval_bundle(d, name="ovl"):
+    """A reference-format track bundle in ``d/name``: the oval's corridor
+    (half width 2 m) rasterized and written by ``save_map_yaml``, its
+    centerline with width columns 0.25 m wider than that corridor (they
+    overstate it, as a real bundle's constant widths do at corners), and a
+    raceline pushed 1.8 m toward the outer wall over a bump: a pinch of
+    0.26 m against the 0.35 m margin."""
+    from irbfn_tpu_torch.sim import oval_track
+    from irbfn_tpu_torch.sim.make_feasible_raceline import geometry
+    from irbfn_tpu_torch.sim.map import rasterize_track, save_map_yaml
+
+    path = os.path.join(d, name)
+    os.makedirs(path, exist_ok=True)
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device="cpu")
+    omap = rasterize_track(track, half_width=2.0)
+    save_map_yaml(omap.dist.numpy() > 0, float(omap.resolution),
+                  (float(omap.origin_x), float(omap.origin_y), 0.0),
+                  os.path.join(path, f"{name}_map.yaml"))
+    rl = track.raceline
+    c = np.stack([rl.xs.double().numpy(), rl.ys.double().numpy()], -1)
+    np.savetxt(os.path.join(path, f"{name}_centerline.csv"),
+               np.column_stack([c, np.full((len(c), 2), 2.25)]),
+               delimiter=",", fmt="%.9g",
+               header="x_m,y_m,w_tr_right_m,w_tr_left_m")
+    s, yaw, _, length = geometry(c)
+    nrm = np.stack([-np.sin(yaw), np.cos(yaw)], -1)
+    bump = 1.8 * np.exp(-0.5 * ((s - 0.3 * length) / 6.0) ** 2)
+    xy = c + bump[:, None] * nrm
+    s, yaw, k, _ = geometry(xy)
+    np.savetxt(os.path.join(path, f"{name}_raceline.csv"),
+               np.stack([s, xy[:, 0], xy[:, 1], yaw, k,
+                         np.full_like(s, 3.0)], -1),
+               delimiter=";", fmt="%.9g",
+               header="s_m; x_m; y_m; psi_rad; kappa_radpm; vx_mps")
+    return path
+
+
+def phase_raceline_tools(device):
+    """Phase 43: ``make_feasible_raceline`` (pure EDT push) and
+    ``min_curv_raceline`` on a pinched oval bundle, on the card and with
+    ``--device cpu``: every point of each line clears the margin (less
+    1e-3 m) on the card's map, and the card's CSV is the CPU's."""
+    import torch
+
+    from irbfn_tpu_torch.sim import make_feasible_raceline as mf
+    from irbfn_tpu_torch.sim import min_curv_raceline as mc
+    from irbfn_tpu_torch.sim.map import distance_at, load_map_yaml
+
+    mods = {"make_feasible_raceline": mf, "min_curv_raceline": mc}
+    parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = _pinched_oval_bundle(tmp)
+        omap = load_map_yaml(os.path.join(bundle, "ovl_map.yaml"),
+                             device=device)
+        for name, flags in RACELINE_TOOLS.items():
+            lines, secs = {}, {}
+            for where in (str(device), "cpu"):
+                out = os.path.join(tmp, f"{name}_{where}.csv")
+                t0 = time.perf_counter()
+                _quiet(f"phase43_{name}_{where.split(':')[0]}.log",
+                       mods[name].main, ["--map_dir", bundle, *flags,
+                                         "--out", out, "--device", where])
+                secs[where] = time.perf_counter() - t0
+                lines[where] = np.loadtxt(out, delimiter=";", comments="#")
+            card, cpu = lines[str(device)], lines["cpu"]
+            d = distance_at(omap, torch.as_tensor(card[:, 1], device=device,
+                                                  dtype=torch.float32),
+                            torch.as_tensor(card[:, 2], device=device,
+                                            dtype=torch.float32))
+            clear = float(d.min())
+            err = (np.abs(card - cpu).max(0) if card.shape == cpu.shape
+                   else np.full(6, np.inf))
+            check(clear >= RACELINE_MARGIN - 1e-3
+                  and float(err.max()) <= TOL_RACELINE_CSV,
+                  f"{name}: min clearance {clear:.4f} m (margin "
+                  f"{RACELINE_MARGIN}), card vs CPU per column {err}")
+            parts.append(f"{name} ({' '.join(flags)}): {len(card)} points, "
+                         f"{secs[str(device)]:.2f} s on the card, "
+                         f"{secs['cpu']:.2f} s with --device cpu, min "
+                         f"clearance {clear:.4f} m, card vs CPU max|diff| "
+                         "per column (s, x, y, psi, kappa, vx) "
+                         + "/".join(f"{e:.1e}" for e in err))
+    print(f"raceline tools on a pinched oval (margin {RACELINE_MARGIN} m; "
+          f"tol {TOL_RACELINE_CSV} card vs CPU): " + "; ".join(parts),
+          flush=True)
+
+
+def phase_oracle_gold(device):
+    """Phase 44: ``gen_test_oracles.derive_perturbation_gold`` on the card
+    in f64 (the two rows solved, 60 perturbations of each evaluated, the
+    proof that none improves), against the JAX package's committed
+    ``tests/oracles/nmpc_pert_gold.npz``."""
+    from irbfn_tpu_torch._device import wait_clock
+    from irbfn_tpu_torch.solvers.gen_test_oracles import \
+        derive_perturbation_gold
+
+    t0 = wait_clock(device)
+    gold = derive_perturbation_gold(device)  # raises if any improves
+    secs = wait_clock(device) - t0
+    with np.load(PERT_GOLD) as ref:
+        e_u = float(np.abs(gold["u_star"] - ref["u_star"]).max())
+        e_f = float((np.abs(gold["f_star"] - ref["f_star"])
+                     / np.abs(ref["f_star"])).max())
+        same_draws = float(np.abs(gold["cands"] - ref["cands"]).max())
+    check(e_u <= TOL_PERT_U, f"perturbation gold u_star {e_u:.3e} from the "
+          f"committed one (tol {TOL_PERT_U})")
+    print(f"oracle generator: the perturbation gold in f64 on the card in "
+          f"{secs:.2f} s: u_star {e_u:.2e} from the committed "
+          f"nmpc_pert_gold.npz (tol {TOL_PERT_U}), f_star rel {e_f:.1e}, "
+          f"candidates {same_draws:.1e} from its draws; 0 of "
+          f"{gold['cands'].shape[0]} x {gold['n_cand']} perturbations "
+          "improve", flush=True)
+
+
+def phase_trajgen(device):
+    """Phase 45: the TrajGen frequency (``utils/profiling.py --parts
+    trajgen``): the clothoid solver, solver + 9-point integration, and the
+    ``clothoid_pr`` forward through ``rbf_forward.cu``, at B = 500 and
+    2^14, CUDA events over ``TRAJGEN_CALLS`` calls in a row; the net path
+    against its plain version at phase 29's tolerance, one launch a call.
+    Returns the launches."""
+    import torch
+
+    from irbfn_tpu_torch.ops import rbf
+    from irbfn_tpu_torch.utils import profiling as prof
+
+    net, _ = _asset(CLOTHOID_ASSET, device)
+    ops = rbf.wcrbf_params_to_kernel(net)
+    errs = {}
+    for B in TRAJGEN_BATCHES:
+        g = torch.as_tensor(prof.trajgen_goals(B), device=device)
+        errs[B] = _compare(f"TrajGen net B={B}",
+                           (g * net.input_scale).contiguous(), ops,
+                           TOL_CLOTHOID_FORWARD)
+    reset_launches()
+    res = prof.profile_trajgen(device, TRAJGEN_BATCHES,
+                               CLOTHOID_ASSET + ".json",
+                               CLOTHOID_ASSET + ".npz", TRAJGEN_CALLS)
+    torch.cuda.synchronize()
+    launches = read_launches()["rbf_forward"]
+    # every call of the net path, the warm-up's included
+    expected = len(TRAJGEN_BATCHES) * (TRAJGEN_CALLS + prof.WARMUP)
+    check(launches == expected, f"TrajGen: {launches} rbf_forward "
+          f"launches, not {expected}")
+    check(all(np.isfinite(r) and r > 0 for _, r, _ in res.values()),
+          f"TrajGen rates: {res}")
+    print("TrajGen frequency (CUDA events, " + f"{TRAJGEN_CALLS} calls in a "
+          "row): " + "; ".join(
+              f"{name} B={B:,} {rate:,.0f} trajs/s ({us:.1f} us/batch)"
+              for (name, B), (us, rate, _) in res.items())
+          + f"; rbf_forward {launches} launches (one a net call); net vs "
+          "plain max|err| " + ", ".join(f"B={B} {e:.1e}"
+                                        for B, e in errs.items())
+          + f" (tol {TOL_CLOTHOID_FORWARD})", flush=True)
+    return launches
+
+
+def phase_ceilings(device):
+    """Phase 46: the card's measured ceilings (``measure_ceilings``): the
+    f32 FMA rate of the probe ``fma_ceiling.cu`` (held against its plain
+    chain first) and the HBM read rate of a ``torch.sum`` over 1 GiB; and
+    where an NMPC solve sits against them: ``count_ops``' tally of one
+    Newton iteration (the same on the card and on the CPU) times the
+    solve's iterations, over its wall time."""
+    import torch
+
+    from irbfn_tpu_torch._device import wait_clock
+    from irbfn_tpu_torch.dynamics.params import fullscale_params
+    from irbfn_tpu_torch.ops.fma_ceiling import (STEPS, fma_chain,
+                                                 fma_chain_reference)
+    from irbfn_tpu_torch.parallel.gen_nmpc_table_frenet import wide_rows
+    from irbfn_tpu_torch.solvers import NMPCConfig, nmpc, solve_lattice_point
+    from irbfn_tpu_torch.utils import profiling as prof
+
+    x = torch.arange(1 << 22, dtype=torch.float32, device=device) * 1e-9
+    fma_chain.launches = 0
+    got = fma_chain(x)
+    torch.cuda.synchronize()
+    check(fma_chain.launches == 1, "the FMA probe did not launch")
+    ref = fma_chain_reference(x)
+    e_fma = _max_err(got, ref) / float(ref.abs().max())
+    check(e_fma <= TOL_FMA_REL, f"FMA probe vs its plain chain: rel "
+          f"{e_fma:.2e} (tol {TOL_FMA_REL})")
+    one = prof.event_ms(lambda: fma_chain(x), 20)
+    plain = prof.event_ms(lambda: fma_chain_reference(x), 3)
+    c = prof.measure_ceilings(device)
+    rows = torch.as_tensor(wide_rows(CEILING_NMPC_ROWS, 0), device=device)
+    params = fullscale_params(dtype=torch.float32, device=device)
+    cfg = NMPCConfig(**CEILING_NMPC)
+    t0 = wait_clock(device)
+    solve_lattice_point(rows, params, cfg)
+    wall = wait_clock(device) - t0
+    iters = nmpc.LAST_SOLVE_STATS["newton_iterations"]
+    ops_iter = prof.newton_iteration_ops(rows, params, cfg)
+    small = rows[:256]
+    n_card = prof.newton_iteration_ops(small, params, cfg)
+    n_cpu = prof.newton_iteration_ops(
+        small.cpu(), fullscale_params(dtype=torch.float32, device="cpu"),
+        cfg)
+    check(n_card == n_cpu, f"count_ops: {n_card} operations on the card, "
+          f"{n_cpu} on the CPU for the same iteration")
+    achieved = ops_iter * iters / wall
+    share = achieved / c["fma_flops"]
+    print(f"ceilings (measuring probe fma_ceiling.cu, not a TPU kernel's "
+          f"counterpart; vs its plain chain rel {e_fma:.1e}, tol "
+          f"{TOL_FMA_REL}): f32 FMA {c['fma_flops'] / 1e12:.2f} TFLOP/s "
+          f"({c['n']:,} elements x {STEPS * c['repeats']} dependent FMAs in "
+          f"one pass, {c['fma_ms']:.4f} ms); the 64-FMA chain alone "
+          f"{2 * STEPS * x.numel() / one / 1e6:.0f} GFLOP/s ({one:.4f} ms: "
+          f"16 FLOP a byte, under the ridge), as 128 plain launches "
+          f"{2 * STEPS * x.numel() / plain / 1e6:.0f} GFLOP/s ({plain:.3f} "
+          f"ms); HBM read {c['hbm_bytes_per_s'] / 1e9:.0f} GB/s (torch.sum "
+          f"over {c['hbm_bytes'] / 2**30:.0f} GiB, {c['hbm_ms']:.3f} ms); "
+          f"an NMPC solve of {CEILING_NMPC_ROWS:,} wide-range rows (f32, "
+          f"gn_iters={cfg.gn_iters}, al_outer={cfg.al_outer}): "
+          f"{iters} Newton iterations in {wall:.3f} s, "
+          f"{ops_iter / 1e9:.3f} GFLOP an iteration by count_ops (matmuls "
+          f"2mnk, elementwise one per output element, reductions one per "
+          f"input element; {n_card:,} at 256 rows on the card and on the "
+          f"CPU), {achieved / 1e9:.1f} GFLOP/s = {100 * share:.3f}% of the "
+          f"measured FMA ceiling", flush=True)
+    return dict(fma_flops=c["fma_flops"], hbm_bytes_per_s=c["hbm_bytes_per_s"],
+                nmpc_share=share)
+
+
+def port_tools(device):
+    """Phases 43-46; the TrajGen phase's ``rbf_forward`` launches."""
+    phase_raceline_tools(device)
+    phase_oracle_gold(device)
+    launches = phase_trajgen(device)
+    phase_ceilings(device)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3884,7 +4222,9 @@ def main() -> int:
     quad, tracking, demos = linear_mpc_and_sim(device)
     # multi-device: the EP forward, the sharded datagen, the dry run
     md = multi_device(device, model, golden, lattice_goals, phase10_family_s)
-    print(f"all 42 phases passed in {time.perf_counter() - t_start:.1f} s",
+    # the last tools: raceline makers, oracle generator, TrajGen, ceilings
+    trajgen_rbf = port_tools(device)
+    print(f"all 46 phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [
         dict(KERNELS["rbf_forward"],
@@ -3892,7 +4232,7 @@ def main() -> int:
                        + sum(world_rbf.values())
                        + sum(clothoid_rbf.values()) + cart_rbf
                        + quad["run"] + quad["loop"] + demos["rbf"]
-                       + md["rbf"]),
+                       + md["rbf"] + trajgen_rbf),
              launches_frenet_loop=rbf_launches,
              launches_frenet_chain=frenet_launches + loop_launches,
              **{f"launches_{k}": v for k, v in world_rbf.items()},
@@ -3903,6 +4243,7 @@ def main() -> int:
              launches_quadrotor_loop=quad["loop"],
              launches_demos=demos["rbf"],
              launches_multi_device=md["rbf"],
+             launches_trajgen=trajgen_rbf,
              partial_mode=md["partial"],
              quadrotor_pr={k: v for k, v in quad.items()
                            if k not in ("run", "loop")},

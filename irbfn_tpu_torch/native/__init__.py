@@ -106,6 +106,16 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here (False where there is no
+    g++): the JAX package's ``available``."""
+    try:
+        load()
+    except RuntimeError:
+        return False
+    return True
+
+
 def clothoid_g1_solve(x0: float, y0: float, th0: float, x1: float,
                       y1: float, th1: float):
     """One G1-Hermite solve from (x0, y0, th0) to (x1, y1, th1):
@@ -227,5 +237,5 @@ class TableStore:
             self._handle = None
 
 
-__all__ = ["TableStore", "build", "clothoid_g1_solve",
+__all__ = ["TableStore", "available", "build", "clothoid_g1_solve",
            "clothoid_g1_solve_batch", "clothoid_oracle", "edt", "load"]

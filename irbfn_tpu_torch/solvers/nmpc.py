@@ -34,6 +34,7 @@ nothing is compiled per batch shape.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -223,6 +224,26 @@ def _control_bounds(cfg: NMPCConfig, dtype, device=None):
     return lo, hi
 
 
+@contextlib.contextmanager
+def _calling_thread_autograd():
+    """Autograd on, with every backward run on the calling thread.
+
+    By default the engine runs a CUDA backward on a worker thread of its
+    own, and the nodes that a ``create_graph`` backward records there take
+    that thread's sequence numbers, which the engine's ready queue orders
+    by. In the second backward over them (``Hs4`` below), the order in
+    which gradient contributions are summed into a buffer then depends on
+    how far the worker's count has run against the calling thread's: it
+    lags in the first solve of a process and leads after it, and the two
+    orders round differently (on the H100, 363 of 8,192 rows of a solve
+    parted by up to 0.046 in a control). On the calling thread every
+    solve records its nodes in the same order. A CPU backward runs there
+    anyway."""
+    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(
+            False):
+        yield
+
+
 def _fused_derivatives(u, x0, goal, curv, lam, rho, p, cfg: NMPCConfig,
                        xs=None):
     """Every derivative of a Newton iteration for a batch of rows ``u``
@@ -295,7 +316,7 @@ def _fused_derivatives(u, x0, goal, curv, lam, rho, p, cfg: NMPCConfig,
                 (k,) + tuple(out.shape)),
             is_grads_batched=True, retain_graph=True)[0]
 
-    with torch.enable_grad():
+    with _calling_thread_autograd():
         zr = z4.detach().requires_grad_(True)
         f4 = deriv4(zr[..., :7], zr[..., 7:])  # (B, T, 4, 7)
         Df = batched_grad(f4, torch.eye(7, dtype=dtype, device=dev))
@@ -345,7 +366,7 @@ def _fused_derivatives(u, x0, goal, curv, lam, rho, p, cfg: NMPCConfig,
             DfxT[:, :, i + 1] @ nus[i + 1][..., None])[..., 0]
     nu = torch.stack(nus, dim=2)  # (B, T, 4, 7)
 
-    with torch.enable_grad():
+    with _calling_thread_autograd():
         gz = torch.autograd.grad((nu * f4).sum(), zr, create_graph=True)[0]
         Hs4 = batched_grad(gz, eye9)
     Hs4 = Hs4.permute(1, 2, 3, 0, 4)  # (B, T, 4, 9, 9)

@@ -633,6 +633,38 @@ def test_fused_derivative_pass_with_terminal_cost_and_per_row_params():
                                    atol=TOL_PIECE * scale)
 
 
+def test_fused_derivatives_run_every_backward_on_the_calling_thread(
+        monkeypatch):
+    """P5: a CUDA backward on the engine's worker thread sums a double
+    backward's contributions in an order that depends on that thread's
+    sequence numbers, so the first solve of a process parted from the
+    later ones on the card. Every backward of the derivative pass runs
+    with multithreaded backward off (the setting is the calling thread's,
+    and comes back after), and the pass still equals the whole-rollout
+    pass."""
+    seen = []
+    grad = torch.autograd.grad
+
+    def spy(*a, **kw):
+        seen.append(torch._C._is_multithreading_enabled())
+        return grad(*a, **kw)
+
+    monkeypatch.setattr(torch.autograd, "grad", spy)
+    cfg = T.NMPCConfig()
+    u, x0, goal, curv, lam = _points()
+    args = tuple(t64(a) for a in (u, x0, goal, curv, lam)) + (
+        torch.tensor(100.0, dtype=torch.float64), tp64(), cfg)
+    before = torch._C._is_multithreading_enabled()
+    got = T._fused_derivatives(*args)
+    assert seen and not any(seen)
+    assert torch._C._is_multithreading_enabled() == before
+    monkeypatch.setattr(torch.autograd, "grad", grad)
+    for g, w in zip(got, fused_derivatives_rollout(*args)):
+        scale = max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=TOL_PIECE * scale)
+
+
 def test_activation_onehot_matches_jax_exactly():
     rng = np.random.default_rng(5)
     cfg = T.NMPCConfig()
