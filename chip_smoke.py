@@ -28,8 +28,10 @@ overtake demo, PPO and the closed-loop demos; and multi-device: the
 region-sharded (expert-parallel) forward through the kernel's partial
 mode, the sharded lattice solves and the DP x EP dry run on NCCL; and
 the last tools of the JAX package: the raceline makers, the oracle
-generator, the TrajGen harness and the NMPC roofline's ceilings. Each
-phase prints one line
+generator, the TrajGen harness and the NMPC roofline's ceilings; and
+the committed nets of the zoo, each against its JAX golden and in the
+loop, the learned 3-arm bank and the NMPC profiler's trace. Each
+phase prints one line (phase 48 one a net)
 (the entry points of phases 28-39 and 43 write their own output to
 ``torch_runs/chip_smoke_logs/phase<n>_*.log``), and any failure exits
 non-zero:
@@ -221,6 +223,25 @@ non-zero:
     kernel's counterpart) and HBM read rate, and an NMPC solve's achieved
     share of the FMA ceiling (operations tallied by ``count_ops``).
 
+47. the committed zoo (``scripts/export_torch_ckpt.py --zoo``): the nine
+    runs ``arch_wcrbf_pr``, ``arch_wcrbf_shared`` (a shared head),
+    ``bank_pr_mu{0.60,0.80,1.00}``, ``frenet_wide_cc`` (K = 499),
+    ``frenet_wide_cluster`` (ClusterWCRBFNet, R = 500, K = 10),
+    ``wide_deeper`` and ``wide_mlp`` loaded from their assets in f32: the
+    forward and ``plan_batch`` against the JAX f64 goldens, the cluster
+    net's gate logits too; the six WCRBFNet runs' kernel against its plain
+    version at B = 1,024, the other three through the module path, as in
+    JAX; the kernel on the shared head and at K = 499 timed in turns with
+    the flagship, and at K = 499 also in its partial mode and as a 2-rank
+    EP forward;
+48. the six single nets of the zoo in phase 5's 1000-lane sweep, CUT to
+    their goldens' ``n_steps`` (200), each against its JAX golden;
+49. the learned bank: ``eval_adaptive --nets`` over the three
+    ``bank_pr_mu*`` arms on the bundle written back from its golden,
+    against the JAX script's run;
+50. ``utils/profiling.py --parts nmpc --reps 4 --trace_dir``: the Chrome
+    trace of an NMPC solve names the solver's CUDA kernels.
+
 The last two lines are a JSON object naming both kernels with their
 launches, errors, times and bounds, and the line
 ``{"ok": true, "device": {...}}``.
@@ -229,6 +250,7 @@ Usage, from the repository root: ``python3 chip_smoke.py``
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -275,8 +297,9 @@ N_STEPS = 600  # control steps of every closed loop held against a golden
 # control steps of the loops that are records (no golden): phase 23's net
 # and table loops, phase 32's fitted net; cut from 600 to keep the script
 # inside its time limit on slow hosts (an H100 80GB HBM3 machine at 700 W
-# took 1,162 s for the 39 phases before the cut)
-N_RECORD_STEPS = 300
+# took 1,162 s for the 39 phases before the cut to 300; another H100 host
+# 1,176.0 s for the 50 phases before the cut to 100)
+N_RECORD_STEPS = 100
 # the lattice generator's flags (its defaults: the whole reference lattice)
 LATTICE_ARGS = ()
 # the committed goal_mpc_pr recipe (docs/ARTIFACTS.md): 16 regions x 512
@@ -320,16 +343,16 @@ N_PLANS = 100
 # 8 x 6 x 6 x 9 x 4 x 3 x 3 = 93,312 rows (the defaults' steps give
 # 8 x 18 x 18 x 63 x 8 x 7 x 13 = 106.5M rows; cart_c1's 2,437,120), made
 # without its straggler pass, which patch_table_stragglers then runs; the
-# cart_c1_pr recipe (docs/ARTIFACTS.md); 8 rows for eval_nmpc_oracle (its
+# cart_c1_pr recipe (docs/ARTIFACTS.md); 4 rows for eval_nmpc_oracle (its
 # default is 200; host SLSQP takes ~3 s a row: 39 rows took 77-127 s on
-# the H100 machines' hosts)
+# the H100 machines' hosts, 8 rows 26.1 s)
 CART_TABLE_ARGS = ("--d_x_goal", "0.7", "--d_y_goal", "0.7", "--d_t_goal",
                    "0.775", "--d_v_goal", str(7.0 / 3.0), "--d_beta", "0.6",
                    "--d_angv_z", "3.0")
 CART_FIT_ARGS = ("--direct_fit", "--fit_mode", "per_region", "--num_k",
                  "512", "--num_t_goal", "4", "--num_v_car", "2",
                  "--num_angv_z", "2")
-N_ORACLE_ROWS = 8
+N_ORACLE_ROWS = 4
 
 # Tolerances, with their reasons:
 # - the flagship head is ill-conditioned (sum |w| ~ 2e5 per output): an f32
@@ -537,6 +560,9 @@ def check(ok: bool, msg: str):
         raise SmokeFailure(msg)
 
 
+CARD = []  # nvidia-smi's "name, power.limit", printed again at the end
+
+
 def phase_device():
     import torch
 
@@ -545,7 +571,8 @@ def phase_device():
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip(), flush=True)
+    CARD.append(smi.stdout.strip())
+    print(CARD[-1], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda:0")
@@ -807,10 +834,11 @@ def phase_against_jax(device, model, config, golden):
     return track, planner
 
 
-def _drive(env, sim, policy, kernel, steps=N_STEPS):
+def _drive(env, sim, policy, kernel, steps=N_STEPS, per_step=1):
     """One closed loop of ``steps`` with the launch counts set to 0 just
-    before and read just after; the path's kernel must have launched once
-    per control step. Returns (final, traj, launches, seconds)."""
+    before and read just after; the path's kernel must have launched
+    ``per_step`` times per control step (0: a net the kernel does not
+    serve). Returns (final, traj, launches, seconds)."""
     import torch
 
     torch.cuda.synchronize()
@@ -820,8 +848,9 @@ def _drive(env, sim, policy, kernel, steps=N_STEPS):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    check(launches[kernel] == steps,
-          f"{kernel} launches {launches[kernel]} != control steps {steps}")
+    check(launches[kernel] == per_step * steps,
+          f"{kernel} launches {launches[kernel]} != {per_step} x control "
+          f"steps {steps}")
     check(bool(torch.isfinite(traj.obs.ey).all()), "NaN in the closed loop")
     return final, traj, launches, wall
 
@@ -899,12 +928,17 @@ def _in_turns(plain, kernel, iters=200, warmup=20):
 
 def _rbf_flops(B, ops) -> float:
     """Operations of one forward: per (row, region, kernel) a difference
-    and an FMA per feature, the root, the width, the basis (~3), the gate
-    weight and an FMA per output; per (row, region) the gate's 8 per
-    feature."""
+    and an FMA per feature, the root, the width, the basis (~3) and the
+    gate weight; then per-region heads an FMA per output there, while a
+    shared head sums the gated basis over the regions (an FMA) and takes
+    one product per (row, kernel, output), since sum_r g_r phi_r W =
+    (sum_r g_r phi_r) W; per (row, region) the gate's 8 per feature."""
     R, K, F = ops.centers.shape
     O = ops.w.shape[-1]
-    return float(B * R * K * (3 * F + 6 + 2 * O) + B * R * F * 8)
+    gate = B * R * F * 8
+    if ops.per_region:
+        return float(B * R * K * (3 * F + 6 + 2 * O) + gate)
+    return float(B * R * K * (3 * F + 6 + 2) + 2 * B * K * O + gate)
 
 
 def _bound(flops, nbytes):
@@ -4169,6 +4203,490 @@ def port_tools(device):
     return launches
 
 
+# ------------------------------------------------------ the committed zoo
+
+# the nine committed runs exported by scripts/export_torch_ckpt.py --zoo,
+# as its zoo.json names them, each with a lean golden (256 forward and
+# plan rows; for the six single nets, the sweep CUT from the eval script's
+# 600 steps to the golden's n_steps for the time limit: the loop runs are
+# those whose golden holds loop_done), and the learned bank's golden,
+# which names its arms' runs
+ZOO_MANIFEST = os.path.join(ASSETS, "zoo.json")
+ZOO_TIMED = ("arch_wcrbf_shared", "frenet_wide_cc")  # beside the flagship
+# the partial mode (and a 2-rank EP forward) on the padded K = 499 layout
+ZOO_PARTIAL = ("frenet_wide_cc",)
+TRACE_ROWS = 1000  # the NMPC solve whose profiler trace phase 50 writes
+# each zoo loop's split of a step: ZOO_SPLIT steps synchronised by part
+# (median), then ZOO_PROFILED under torch.profiler (its key_averages over
+# ~4,600 launches a step cost seconds of host time a step)
+ZOO_SPLIT = 10
+ZOO_PROFILED = 3
+# - each net in f32 on the card against its JAX f64 golden (forward and
+#   plan_batch), and its kernel against its plain version: the f32 rounding
+#   of its head grows with the head's sum of |w| per output (printed by
+#   phase 47 beside the tolerance). By the rule of phases 4 and 8, each
+#   tolerance is the next 1, 2 or 5 x 10^n at least twice the port's plain
+#   f32 forward's distance from f64 on a CPU, and at least TOL_RANDOM:
+TOL_ZOO = {
+    "arch_wcrbf_pr": 5e-3,  # sum |w| 4.9e5, 2.5x the flagship's: 2.2e-3
+    # shared head: sum |w| 9.8e3 over features summed over 16 unnormalised
+    # gates (outputs up to 41): 9.2e-4
+    "arch_wcrbf_shared": 2e-3,
+    "bank_pr_mu0.60": 5e-4,  # sum |w| 1.4e5: 1.4e-4
+    "bank_pr_mu0.80": 5e-4,  # 1.4e5: 1.8e-4
+    "bank_pr_mu1.00": 5e-4,  # 1.3e5: 2.1e-4
+    "frenet_wide_cc": 1e-3,  # 2.4e5 (K = 499): 2.7e-4
+    "frenet_wide_cluster": TOL_RANDOM,  # head 64 (a Dense on 10 features):
+    # 8.8e-6; its gate logits, an affine map of the input: 3.2e-6
+    "wide_deeper": 2e-4,  # head 61 behind two Dense(64)+relu: 6.5e-5
+    "wide_mlp": TOL_RANDOM,  # head 43: 9.3e-6
+}
+# - each sweep against its golden. The JAX package against itself, its
+#   start states nudged at the f32 scale (scripts/export_torch_ckpt.py
+#   --zoo --nudge N [--nudge_seed S]: every entry x(1 + N) for N = +-1e-7
+#   and +-1e-6, and x(1 +- N) with the signs of seeds 1 and 2 at 1e-7 and
+#   1e-6; the goldens' 200 steps; each nudge's readings in PERF.md section
+#   6), at most: (done lanes, lap lanes, laps apart in a lane, per-lane
+#   |ey| median and max mm, sweep mm) arch_wcrbf_pr (1, 0, 0, 4.94,
+#   114.47, 0.808), arch_wcrbf_shared (117, 0, 0, 0.74, 546.15, 3.102),
+#   frenet_wide_cc (0, 0, 0, 0.0007, 1.09, 0.0031), frenet_wide_cluster
+#   (0, 0, 0, 0.0004, 23.33, 0.075), wide_deeper (1, 0, 0, 0.0016, 230.17,
+#   0.203), wide_mlp (0, 0, 0, 0.0004, 14.18, 0.027). No lane finishes a
+#   lap in 200 steps. Each limit is twice that spread, rounded up to two
+#   significant digits, and never under phase 5's, with the per-lane |ey|
+#   on its median (frenet_wide_cc: its max); frenet_wide_cc and wide_mlp
+#   are held to phase 5's (done lanes, lap lanes, laps apart, per-lane |ey|
+#   mm, sweep mm). scripts/zoo_loop_faults.py plants input-bound faults in
+#   the planner and shows which of these limits each breaks:
+TOL_ZOO_LOOP = {
+    "arch_wcrbf_pr": (2, TOL_LAP_LANES, 1, TOL_EY_LANE_MM, 1.7),
+    "arch_wcrbf_shared": (240, TOL_LAP_LANES, 1, TOL_EY_LANE_MM, 6.3),
+    "frenet_wide_cc": (0, TOL_LAP_LANES, 1, TOL_EY_LANE_MM, TOL_EY_SWEEP_MM),
+    "frenet_wide_cluster": (0, TOL_LAP_LANES, 1, TOL_EY_LANE_MM, 0.15),
+    "wide_deeper": (2, TOL_LAP_LANES, 1, TOL_EY_LANE_MM, 0.41),
+    "wide_mlp": (0, TOL_LAP_LANES, 1, TOL_EY_LANE_MM, TOL_EY_SWEEP_MM),
+}
+ZOO_LANE_MAX = ("frenet_wide_cc",)  # per-lane |ey| held at its max
+# - the learned bank's fixed-arm rewards (lap progress over the golden's
+#   --n_steps, 100: CUT from the script's 600 for the time limit) against
+#   the JAX script's, as tests/test_torch_eval_closed_loop.py holds them
+TOL_ADAPTIVE_REWARD = 1e-4
+
+
+def _zoo_runs():
+    """(the nine runs, the six whose golden holds a sweep, the bank's
+    golden path) from the exporter's ``zoo.json``."""
+    with open(ZOO_MANIFEST) as f:
+        manifest = json.load(f)
+    loops = []
+    for run in manifest["runs"]:
+        with np.load(os.path.join(ASSETS, f"{run}_golden.npz")) as z:
+            if "loop_done" in z.files:
+                loops.append(run)
+    return (tuple(manifest["runs"]), tuple(loops),
+            os.path.join(ASSETS, manifest["bank"]))
+
+
+def _head_sum(model) -> float:
+    """The largest sum of |w| over one output of a net's last layer."""
+    sd = model.state_dict()
+    w = sd["head_kernel"] if "head_kernel" in sd else sd["dense3_kernel"]
+    return float(w.abs().sum(0).max())
+
+
+def _zoo_inputs(rng, config, B, device):
+    """B net inputs drawn inside a config's trained grid."""
+    import torch
+
+    from irbfn_tpu_torch.train import input_bounds_from_config
+
+    b = input_bounds_from_config(config)
+    return torch.as_tensor(rng.uniform(b[:, 0], b[:, 1], (B, b.shape[0])),
+                           dtype=torch.float32, device=device)
+
+
+def phase_zoo(device, flagship, golden):
+    """Phase 47: the nine committed runs of the zoo from their assets, f32
+    on the card: the forward and ``plan_batch`` against the JAX f64
+    goldens (and the cluster net's gate logits); the six WCRBFNet runs'
+    kernel against its plain version at B = 1,024, the others through the
+    module path (no launch); the kernel on ``arch_wcrbf_shared`` (a shared
+    head) and ``frenet_wide_cc`` (K = 499) timed in turns with the
+    flagship; on K = 499 also the partial mode against its plain version,
+    and the 2-rank EP forward (two partial launches, summed and finished)
+    against the default kernel. Returns (launches, times)."""
+    import torch
+
+    from irbfn_tpu_torch.models import WCRBFNet
+    from irbfn_tpu_torch.ops import rbf
+    from irbfn_tpu_torch.planning import IRBFNFrenetPlanner
+    from irbfn_tpu_torch.sim import oval_track
+    from irbfn_tpu_torch.train import input_bounds_from_config
+
+    track = oval_track(30.0, 15.0, n_samples=512, speed=3.0, device=device)
+    rng = np.random.default_rng(47)
+    launches, lines = 0, []
+    zoo, _, _ = _zoo_runs()
+    timed = {"frenet_wide_pr1": (rbf.wcrbf_params_to_kernel(flagship), (
+        torch.as_tensor(golden["x"], device=device)
+        * flagship.input_scale).contiguous())}
+    for run in zoo:
+        model, config = _asset(os.path.join(ASSETS, run), device)
+        g = _npz(os.path.join(ASSETS, f"{run}_golden.npz"))
+        tol, kernel = TOL_ZOO[run], isinstance(model, WCRBFNet)
+        torch.cuda.synchronize()
+        reset_launches()
+        with torch.no_grad():
+            out = model(torch.as_tensor(g["x"], device=device))
+        res = IRBFNFrenetPlanner(
+            model, track, input_bounds=input_bounds_from_config(config)
+        ).plan_batch(*torch.as_tensor(g["plan_in"], device=device).T)
+        torch.cuda.synchronize()
+        n = read_launches()["rbf_forward"]
+        check(n == 2 * kernel, f"{run}: {n} rbf_forward launches for a "
+              f"forward and a plan ({type(model).__name__})")
+        launches += n
+        out, logits = out if isinstance(out, tuple) else (out, None)
+        e_fwd = _max_err(out.cpu(), torch.from_numpy(g["forward_f64"]))
+        e_plan = max(_max_err(getattr(res, k).cpu(),
+                              torch.from_numpy(g[f"plan_{k}"]))
+                     for k in ("accel", "steer_vel"))
+        line = (f"{run} ({type(model).__name__}, sum|w| "
+                f"{_head_sum(model):.3g}, tol {tol:g}): forward {e_fwd:.2e}"
+                f", plan {e_plan:.2e}")
+        check(e_fwd <= tol and e_plan <= tol,
+              f"{run} vs JAX f64: forward {e_fwd:.3e}, plan {e_plan:.3e} > "
+              f"{tol:g}")
+        if logits is not None:
+            rows = g["logits_f64"].shape[0]
+            e_log = _max_err(logits[:rows].cpu(),
+                             torch.from_numpy(g["logits_f64"]))
+            check(e_log <= TOL_RANDOM, f"{run} gate logits vs JAX f64: "
+                  f"{e_log:.3e}")
+            line += f", gate logits {e_log:.2e} (tol {TOL_RANDOM:g})"
+        if kernel:
+            x = (_zoo_inputs(rng, config, 1024, device)
+                 * model.input_scale).contiguous()
+            ops = rbf.wcrbf_params_to_kernel(model)
+            line += (f", kernel vs plain B=1024 "
+                     f"{_compare(f'{run} B=1024', x, ops, tol):.2e}")
+            if run in ZOO_PARTIAL:
+                n, part = _zoo_partial(run, model, x, ops, tol)
+                launches += n
+                line += part
+            if run in ZOO_TIMED:
+                timed[run] = (ops, x)
+        else:
+            line += ", module path"
+        lines.append(line)
+    # the kernel at B = 1024 in turns: the flagship, the shared head, K=499
+    order = list(timed) + list(timed)[::-1]
+    ms = {run: {"kernel": [], "plain": []} for run in timed}
+    with torch.no_grad():
+        for run in order:
+            ops, x = timed[run]
+            ms[run]["kernel"].append(_time_ms(
+                lambda: rbf.wcrbf_forward(x, ops)))
+            ms[run]["plain"].append(_time_ms(
+                lambda: rbf.wcrbf_forward_reference(x, ops), iters=50,
+                warmup=5))
+    times = {}
+    for run, t in ms.items():
+        ops, x = timed[run]
+        nbytes = 4 * (sum(o.numel() for o in ops[:7]) + x.numel()
+                      + x.shape[0] * ops.w.shape[-1])
+        bound_ms, bound_by = _bound(_rbf_flops(x.shape[0], ops), nbytes)
+        times[run] = dict(ms=float(np.mean(t["kernel"])),
+                          plain_ms=float(np.mean(t["plain"])),
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
+    print("the committed zoo vs the JAX f64 goldens (256 rows), f32 on the "
+          "card: " + "; ".join(lines) + "; the kernel at B=1024 (CUDA "
+          "events, in turns with the flagship): " + "; ".join(
+              f"{run} {t['ms']:.4f} ms (runs {ms[run]['kernel']}), plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']}" for run, t in times.items()), flush=True)
+    return launches, times
+
+
+def _zoo_partial(run, model, x, ops, tol):
+    """The partial mode on the padded layout: the kernel's (B, O + 1) sums
+    against the plain partial mode (relative to max(1, max|plain|), as the
+    undivided sums grow with the gate sum) and finished against the plain
+    default forward; then the 2-rank EP forward (``_sharded_forward``, one
+    partial launch per rank, the path of phase 40) against the default
+    kernel. Returns (EP launches, the line's part)."""
+    import torch
+
+    from irbfn_tpu_torch.ops import rbf
+
+    with torch.no_grad():
+        plain = rbf.wcrbf_forward_reference(x, ops, partial=True)
+        got = rbf.wcrbf_forward(x, ops, partial=True)
+        full = rbf.wcrbf_forward(x, ops)
+        ref = rbf.wcrbf_forward_reference(x, ops)
+        slices = _region_slices(model, 2)
+        torch.cuda.synchronize()
+        reset_launches()
+        sharded = _sharded_forward(x, slices, rbf.wcrbf_forward)
+        torch.cuda.synchronize()
+        n = read_launches()["rbf_forward"]
+    e_part = _max_err(got, plain) / max(1.0, float(plain.abs().max()))
+    e_fin = _max_err(rbf.finish_partial(got, ops), ref)
+    e_ep = _max_err(sharded, full)
+    check(n == 2, f"{run} EP forward: {n} partial launches, not 2")
+    check(bool(torch.isfinite(got).all() & torch.isfinite(sharded).all())
+          and max(e_part, e_fin, e_ep) <= tol,
+          f"{run} partial mode: vs plain partial rel {e_part:.3e}, finished"
+          f" vs plain {e_fin:.3e}, 2-rank EP vs kernel {e_ep:.3e} > {tol:g}")
+    return n, (f", partial mode vs plain rel {e_part:.2e} (gate sum up to "
+               f"{float(plain[:, -1].max()):.2f}), finished {e_fin:.2e}, "
+               f"2-rank EP forward vs kernel {e_ep:.2e} ({n} partial "
+               "launches)")
+
+
+def zoo_sweep(device, run, lanes, bounds=None):
+    """One zoo net from its assets in phase 5's 1000-lane sweep for its
+    golden's ``n_steps`` (``bounds``: the planner's input bounds, default
+    the config's). Returns (final, traj, launches, seconds, (env, sim,
+    policy), golden)."""
+    import torch
+
+    from irbfn_tpu_torch.models import WCRBFNet
+    from irbfn_tpu_torch.planning import IRBFNFrenetPlanner
+    from irbfn_tpu_torch.train import input_bounds_from_config
+    from irbfn_tpu_torch.utils.profiling import sweep_env
+
+    model, config = _asset(os.path.join(ASSETS, run), device)
+    g = _npz(os.path.join(ASSETS, f"{run}_golden.npz"))
+    env, sim = sweep_env(device, "accl", lanes)
+    planner = IRBFNFrenetPlanner(
+        model, env.track, input_bounds=(input_bounds_from_config(config)
+                                        if bounds is None else bounds))
+
+    def policy(obs):
+        r = planner.plan_batch(obs.s, obs.ey, obs.epsi, obs.delta,
+                               obs.linear_vel_x, obs.linear_vel_y,
+                               obs.ang_vel_z)
+        return torch.stack([r.accel, r.steer_vel], dim=-1)
+
+    final, traj, launches, wall = _drive(
+        env, sim, policy, "rbf_forward", int(g["n_steps"]),
+        int(isinstance(model, WCRBFNet)))
+    return final, traj, launches, wall, (env, sim, policy), g
+
+
+def zoo_loop_verdict(run, r, g):
+    """A zoo sweep's readings (``_against``) against its golden by
+    ``TOL_ZOO_LOOP``: (the readings with the laps apart and the per-lane
+    |ey| statistic added, the line's part, the failed limits' names)."""
+    done_tol, lap_tol, step_tol, ey_tol, sweep_tol = TOL_ZOO_LOOP[run]
+    r["lap_step"] = int(np.abs(r["laps"] - g["loop_laps"]).max())
+    r["ey_stat"] = float(r["d_ey_mm"].max() if run in ZOO_LANE_MAX
+                         else np.median(r["d_ey_mm"]))
+    failed = [name for name, v, tol in (
+        ("done", r["n_done"], done_tol), ("laps", r["n_laps"], lap_tol),
+        ("laps apart", r["lap_step"], step_tol),
+        ("per-lane |ey|", r["ey_stat"], ey_tol),
+        ("sweep", r["d_sweep_mm"], sweep_tol)) if not v <= tol]
+    text = (f"{int((~r['done']).sum())}/{r['done'].size} lanes completed "
+            f"(JAX {int((~g['loop_done']).sum())}), laps>=1 "
+            f"{int((r['laps'] >= 1).sum())} (JAX "
+            f"{int((g['loop_laps'] >= 1).sum())}); mean|ey| "
+            f"{r['ey'].mean():.4f} m (JAX {g['loop_ey_mean'].mean():.4f}); "
+            f"{r['n_done']} lanes' done (tol {done_tol}) and {r['n_laps']} "
+            f"lanes' laps (tol {lap_tol}) differ, by up to {r['lap_step']} "
+            f"(tol {step_tol}); per-lane diff median "
+            f"{np.median(r['d_ey_mm']):.4f} mm, max {r['d_ey_mm'].max():.2f}"
+            f" mm (tol {ey_tol} on the "
+            f"{'max' if run in ZOO_LANE_MAX else 'median'}), sweep "
+            f"{r['d_sweep_mm']:.4f} mm (tol {sweep_tol})")
+    return r, text, failed
+
+
+def phase_zoo_loops(device, golden):
+    """Phase 48: the six single nets of the zoo (WCRBFNet per-region and
+    shared heads, K = 499, the learned-gate cluster net, the deeper and MLP
+    heads) in phase 5's 1000-lane sweep, CUT to their goldens' ``n_steps``,
+    each against its JAX golden (``zoo_loop_verdict``). Returns the
+    kernel's launches."""
+    from irbfn_tpu_torch.utils.profiling import profile_loop
+
+    lanes = {k: golden[k] for k in ("loop_mu", "loop_cs", "loop_noise")}
+    total = 0
+    for run in _zoo_runs()[1]:
+        final, traj, launches, wall, (env, sim, policy), g = zoo_sweep(
+            device, run, lanes)
+        total += launches["rbf_forward"]
+        steps = int(g["n_steps"])
+        # where a step's time goes: ZOO_SPLIT steps after 2, synchronised
+        # by part, then ZOO_PROFILED under torch.profiler
+        split, step_ms, dev_ms, idle, per_step_launches = profile_loop(
+            env, sim, policy, ZOO_SPLIT, 2, ZOO_PROFILED)
+        r, text, failed = zoo_loop_verdict(run, _against(final, traj, g),
+                                           g)
+        print(f"zoo loop {run}: {text}; {steps} steps (CUT from 600) in "
+              f"{wall:.2f} s = {steps / wall:.1f} control steps/s; "
+              f"rbf_forward {launches['rbf_forward']} launches"
+              + ("" if launches["rbf_forward"] else " (module path)")
+              + f"; ms per step, median of {ZOO_SPLIT} synchronised: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f"; {ZOO_PROFILED} steps under the profiler {step_ms:.2f} "
+              f"ms, device {dev_ms:.3f} ms, idle share {idle:.3f}, "
+              f"{per_step_launches:.0f} kernel launches per step",
+              flush=True)
+        check(not failed, f"zoo loop {run}: {', '.join(failed)} past "
+              f"TOL_ZOO_LOOP: {r['n_done']} lanes' done, {r['n_laps']} "
+              f"lanes' laps (by up to {r['lap_step']}) differ, per-lane "
+              f"|ey| {r['ey_stat']:.3f} mm, sweep {r['d_sweep_mm']:.4f} mm "
+              "from JAX")
+    return total
+
+
+def phase_learned_bank(device):
+    """Phase 49: ``eval_adaptive --nets`` over the three ``bank_pr_mu*``
+    arms on the bundle that ``bank_pr_golden.npz`` holds (written back byte
+    for byte), with the JAX run's flags, against the JAX script's JSON.
+    Returns the kernel's launches: every arm's forward at every step of
+    every round (the episodes and each arm's fixed baselines)."""
+    import torch
+
+    from irbfn_tpu_torch.sim import eval_adaptive
+
+    g = _npz(_zoo_runs()[2])
+    ref = json.loads(str(g["results_json"]))
+    argv = [str(a) for a in g["argv"]]
+    arms = [str(n) for n in g["nets"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle = os.path.join(tmp, "ovl")
+        os.makedirs(bundle)
+        for k in g:
+            if k.startswith("bundle_"):
+                with open(os.path.join(bundle, k[len("bundle_"):]),
+                          "wb") as f:
+                    f.write(g[k].tobytes())
+        nets = [f"{p}.json:{p}.npz" for p in (
+            os.path.join(ASSETS, n) for n in arms)]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res, _ = _quiet("phase49_eval_adaptive.log", eval_adaptive.main,
+                        ["--device", "cuda", *argv, "--map_dir", bundle,
+                         "--json_out", os.path.join(tmp, "adaptive.json"),
+                         "--nets", *nets])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()["rbf_forward"]
+    n_arms = len(arms)
+    flag = dict(zip(argv, argv[1:]))
+    steps = int(flag["--n_steps"])
+    rounds = int(flag["--episodes"]) + n_arms * int(flag["--baseline_rounds"])
+    check(launches == n_arms * steps * rounds,
+          f"learned bank: {launches} rbf_forward launches, not {n_arms} arms"
+          f" x {steps} steps x {rounds} rounds")
+    e_fixed = _max_err(torch.as_tensor(res["fixed_rewards"]),
+                       torch.as_tensor(ref["fixed_rewards"]))
+    speeds = np.asarray(res["speed_scales"])
+    e_speed = float(np.abs(speeds / np.asarray(ref["speed_scales"]) - 1.0)
+                    .max())
+    pulls, rewards = np.asarray(res["pulls"]), np.asarray(res["rewards"])
+    fixed = np.asarray(res["fixed_rewards"])
+    e_pulled = float(np.abs(rewards - fixed[pulls, np.arange(
+        pulls.shape[1])]).max())
+    print(f"learned bank (eval_adaptive --nets {' '.join(arms)}, "
+          f"{' '.join(argv)}; the bundle written back from the golden): "
+          f"fixed rewards {np.round(fixed, 4).tolist()} (JAX "
+          f"{np.round(np.asarray(ref['fixed_rewards']), 4).tolist()}), "
+          f"max|diff| {e_fixed:.2e} (tol {TOL_ADAPTIVE_REWARD:g}); speed "
+          f"scales rel {e_speed:.1e} (tol 1e-12); pulled arms "
+          f"{pulls.tolist()}, each round's reward its arm's baseline to "
+          f"{e_pulled:.1e}; {launches} rbf_forward launches ({n_arms} per "
+          f"step); {wall:.1f} s", flush=True)
+    check(res["mode"] == ref["mode"] == "learned" and set(res) == set(ref),
+          f"learned bank: result keys {sorted(res)} vs JAX {sorted(ref)}")
+    check(e_fixed <= TOL_ADAPTIVE_REWARD and e_speed <= 1e-12,
+          f"learned bank vs JAX: fixed rewards {e_fixed:.3e}, speed "
+          f"scales {e_speed:.3e}")
+    check(pulls.shape == (int(flag["--episodes"]), len(ref["combos"]))
+          and ((pulls >= 0) & (pulls < n_arms)).all() and e_pulled <= 1e-6,
+          f"learned bank: pulls {pulls.tolist()}, rewards {rewards.tolist()}")
+    return launches
+
+
+def phase_nmpc_trace(device):
+    """Phase 50: ``python -m irbfn_tpu_torch.utils.profiling --parts nmpc
+    --nmpc_batches 1000 --reps 4 --trace_dir DIR`` (``profile_nmpc.py``'s
+    flags): the trace file must exist and name the solver's CUDA
+    kernels."""
+    from irbfn_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _quiet("phase50_profiling_nmpc.log", profiling.main,
+               ["--parts", "nmpc", "--nmpc_batches", str(TRACE_ROWS),
+                "--reps", "4", "--trace_dir", tmp])
+        wall = time.perf_counter() - t0
+        path = os.path.join(tmp, "trace.json")
+        check(os.path.exists(path), f"no trace at {path}")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    check(bool(kernels), "the NMPC trace names no CUDA kernel")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+    print(f"profiler trace of a {TRACE_ROWS:,}-row NMPC solve (profiling "
+          f"--parts nmpc --reps 4 --trace_dir): {size / 2**20:.1f} MiB, "
+          f"{len(events):,} events, {sum(kernels.values()):,} CUDA kernel "
+          f"launches of {len(kernels)} kernels (most: "
+          + ", ".join(f"{n[:40]} x{c}" for n, c in top)
+          + f"); the tool's run {wall:.1f} s (its lines in "
+          "torch_runs/chip_smoke_logs/phase50_profiling_nmpc.log)",
+          flush=True)
+
+
+def committed_zoo(device, flagship, golden):
+    """Phases 47-50; (the zoo's rbf_forward launches, the timed nets)."""
+    t = [time.perf_counter()]
+    launches, times = phase_zoo(device, flagship, golden)
+    t.append(time.perf_counter())
+    launches += phase_zoo_loops(device, golden)
+    t.append(time.perf_counter())
+    launches += phase_learned_bank(device)
+    t.append(time.perf_counter())
+    phase_nmpc_trace(device)
+    t.append(time.perf_counter())
+    print("phases 47-50 took " + ", ".join(
+        f"{b - a:.1f}" for a, b in zip(t, t[1:])) + " s", flush=True)
+    return launches, times
+
+
+# host seconds of each phase function and phase group, summed over calls
+# (a group's time holds its phases'); printed before the kernels line
+SECONDS = {}
+
+
+def _timed(fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            SECONDS[fn.__name__] = (SECONDS.get(fn.__name__, 0.0)
+                                    + time.perf_counter() - t0)
+    return run
+
+
+for _name in [n for n, f in globals().items() if callable(f) and (
+        n.startswith("phase_") or n in (
+            "frenet_chain", "worlds", "clothoid_chain", "linear_mpc_and_sim",
+            "multi_device", "port_tools", "committed_zoo"))]:
+    globals()[_name] = _timed(globals()[_name])
+
+
 def main() -> int:
     import torch
 
@@ -4224,15 +4742,22 @@ def main() -> int:
     md = multi_device(device, model, golden, lattice_goals, phase10_family_s)
     # the last tools: raceline makers, oracle generator, TrajGen, ceilings
     trajgen_rbf = port_tools(device)
-    print(f"all 46 phases passed in {time.perf_counter() - t_start:.1f} s",
+    # the committed zoo, its loops, the learned bank, the NMPC trace
+    zoo_rbf, zoo_times = committed_zoo(device, model, golden)
+    print("seconds by phase function and group: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(SECONDS.items(),
+                                          key=lambda kv: -kv[1])),
           flush=True)
+    print(f"all 50 phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print(CARD[-1], flush=True)
     print(json.dumps({"kernels": [
         dict(KERNELS["rbf_forward"],
              launches=(rbf_launches + frenet_launches + loop_launches
                        + sum(world_rbf.values())
                        + sum(clothoid_rbf.values()) + cart_rbf
                        + quad["run"] + quad["loop"] + demos["rbf"]
-                       + md["rbf"] + trajgen_rbf),
+                       + md["rbf"] + trajgen_rbf + zoo_rbf),
              launches_frenet_loop=rbf_launches,
              launches_frenet_chain=frenet_launches + loop_launches,
              **{f"launches_{k}": v for k, v in world_rbf.items()},
@@ -4244,6 +4769,8 @@ def main() -> int:
              launches_demos=demos["rbf"],
              launches_multi_device=md["rbf"],
              launches_trajgen=trajgen_rbf,
+             launches_zoo=zoo_rbf,
+             committed_nets_b1024=zoo_times,
              partial_mode=md["partial"],
              quadrotor_pr={k: v for k, v in quad.items()
                            if k not in ("run", "loop")},

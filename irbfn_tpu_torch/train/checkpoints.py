@@ -31,6 +31,9 @@ import torch
 from irbfn_tpu_torch.models import from_config
 from irbfn_tpu_torch.models.kernels import BASIS_FUNCTIONS
 
+ASSETS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets")
+
 
 def _pyify(tree):
     """numpy and torch scalars and arrays -> plain python, for JSON."""
@@ -69,8 +72,9 @@ def load_config(path: str) -> dict:
         try:
             import yaml
         except ImportError as e:
-            raise ImportError(f"{path}: a YAML config needs PyYAML; export "
-                              "it to JSON (scripts/export_torch_ckpt.py)"
+            raise ImportError(f"{path}: a YAML config needs PyYAML; "
+                              + _exported(os.path.splitext(
+                                  os.path.basename(path))[0], ".json")
                               ) from e
         return yaml.safe_load(f)
 
@@ -222,6 +226,17 @@ def model_config_flags(model) -> dict:
 _STEP_FILE = re.compile(r"^step_(\d+)\.npz$")
 
 
+def _exported(run: str, ext: str) -> str:
+    """Where a JAX run's config or weights are for the port: the committed
+    export ``irbfn_tpu_torch/assets/<run><ext>`` if there is one, else the
+    exporter's command."""
+    if os.path.exists(os.path.join(ASSETS, run + ext)):
+        return ("its export is "
+                + os.path.join("irbfn_tpu_torch", "assets", run + ext))
+    return ("export it with: JAX_PLATFORMS=cpu python "
+            f"scripts/export_torch_ckpt.py --run {run}")
+
+
 def checkpoint_steps(ckpt_dir: str) -> list:
     """The steps saved in ``ckpt_dir``, ascending."""
     if not os.path.isdir(ckpt_dir):
@@ -252,7 +267,11 @@ def restore_params(ckpt_dir: str, step: Optional[int] = None) -> dict:
     if step is None:
         steps = checkpoint_steps(ckpt_dir)
         if not steps:
-            raise FileNotFoundError(f"no step_<n>.npz in {ckpt_dir}")
+            run = os.path.basename(os.path.normpath(ckpt_dir))
+            raise FileNotFoundError(
+                f"no step_<n>.npz in {ckpt_dir} (an orbax checkpoint of the "
+                "JAX package is not readable here); "
+                + _exported(run, ".npz"))
         step = steps[-1]
     with np.load(os.path.join(ckpt_dir, f"step_{int(step)}.npz")) as z:
         return unflatten_tree({k: z[k] for k in z.files})

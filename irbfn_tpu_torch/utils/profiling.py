@@ -31,7 +31,12 @@ and the table generator's chunk by default): one default solve's seconds,
 Newton iterations and seconds per iteration; under ``torch.profiler`` a
 short solve's kernel launches per iteration, device time, idle share and top
 device operations; and the synchronised split of one iteration into the
-fused derivative pass, the SPD solve and the line search. It also measures
+fused derivative pass, the SPD solve and the line search, each the mean
+of ``--reps`` runs (``scripts/profile_nmpc.py``'s chain length).
+``--trace_dir`` also writes the profiled solve of the first batch as a
+Chrome trace (``traced_solve``), as ``profile_nmpc.py --trace_dir`` writes
+one of a warm solve; ``profile_nmpc.py --batch`` (the rows) is
+``--nmpc_batches`` here, and ``--batch`` is the TrajGen batch. It also measures
 the card's ceilings (``measure_ceilings``, from the JAX package's
 ``scripts/profile_nmpc.py``): the f32 FMA rate of one fused pass of
 dependent multiply-add chains (``ops/csrc/fma_ceiling.cu``, a measuring
@@ -433,7 +438,12 @@ def _device_ms(prof) -> float:
     return sum(e.self_device_time_total for e in _kernels(prof)) / 1e3
 
 
-def profile_loop(env, sim, policy, steps, warmup):
+def profile_loop(env, sim, policy, steps, warmup, profiled=None):
+    """``warmup`` steps, then ``steps`` synchronised by part (median ms of
+    each), then ``profiled`` (default ``steps``) under ``torch.profiler``:
+    (split, wall ms, device ms, idle share, launches), the last three per
+    step."""
+    profiled = steps if profiled is None else profiled
     split = {"observe": [], "plan": [], "step": []}
     for i in range(warmup + steps):
         torch.cuda.synchronize()
@@ -453,7 +463,7 @@ def profile_loop(env, sim, policy, steps, warmup):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(profiled):
             obs = env.observe(sim)
             sim = env.step(sim, policy(obs), obs.scan)
         torch.cuda.synchronize()
@@ -462,7 +472,8 @@ def profile_loop(env, sim, policy, steps, warmup):
                    if e.key == "cudaLaunchKernel")
     dev = _device_ms(prof)
     return ({k: 1e3 * float(np.median(v)) for k, v in split.items()},
-            wall / steps, dev / steps, 1.0 - dev / wall, launches / steps)
+            wall / profiled, dev / profiled, 1.0 - dev / wall,
+            launches / profiled)
 
 
 def profile_family(device):
@@ -542,9 +553,29 @@ def profile_fit_and_train(device, family, steps, batch=8192):
     return train, _profiled(one_region, chunks), timings["row_visits"]
 
 
-def profile_nmpc(device, batch: int, seed: int = 0):
+def traced_solve(rows, params, cfg, trace_dir=None):
+    """One ``solve_lattice_point`` of ``rows`` under ``torch.profiler``, its
+    Chrome trace written as ``<trace_dir>/trace.json`` where ``trace_dir``
+    is given: (profiler, wall ms)."""
+    from irbfn_tpu_torch.solvers import nmpc
+
+    cuda = rows.device.type == "cuda"
+    ctx = (trace(trace_dir) if trace_dir else profile(activities=[
+        ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])))
+    with ctx as prof:
+        t0 = time.perf_counter()
+        nmpc.solve_lattice_point(rows, params, cfg)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    return prof, wall
+
+
+def profile_nmpc(device, batch: int, seed: int = 0, reps: int = 32,
+                 trace_dir=None):
     """One default f32 solve of ``batch`` wide-range rows, a short solve
-    under the profiler, and one Newton iteration's parts."""
+    under the profiler (its trace written to ``trace_dir`` where given),
+    and one Newton iteration's parts, each the mean of ``reps`` runs."""
     import dataclasses
 
     from irbfn_tpu_torch.dynamics import fullscale_params
@@ -564,12 +595,7 @@ def profile_nmpc(device, batch: int, seed: int = 0):
     iters = nmpc.LAST_SOLVE_STATS["newton_iterations"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     feasible = float(sol.feasible.float().mean())
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        nmpc.solve_lattice_point(rows, params, short)
-        torch.cuda.synchronize()
-        p_wall = 1e3 * (time.perf_counter() - t0)
+    prof, p_wall = traced_solve(rows, params, short, trace_dir)
     p_iters = nmpc.LAST_SOLVE_STATS["newton_iterations"]
     launches = sum(e.count for e in prof.key_averages()
                    if e.key == "cudaLaunchKernel")
@@ -587,7 +613,7 @@ def profile_nmpc(device, batch: int, seed: int = 0):
             goal[:, None].expand(lead + (7,)), curv[:, None].expand(lead),
             lam[:, None], rho, p_c, cfg)
 
-    def timed(fn, reps=3):
+    def timed(fn):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -655,7 +681,7 @@ def newton_iteration_ops(rows, params, cfg) -> int:
     return ops
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--warmup", type=int, default=20)
@@ -668,9 +694,19 @@ def main(argv=None):
                         "frequency of the clothoid paths (trajgen)")
     p.add_argument("--nmpc_batches", type=str, default="1000,65536",
                    help="rows per solve for --parts nmpc")
+    p.add_argument("--reps", type=int, default=32,
+                   help="--parts nmpc: runs averaged in the per-iteration "
+                        "component timing (profile_nmpc.py's chain length)")
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="--parts nmpc: also write a torch.profiler trace "
+                        "(Chrome JSON, <trace_dir>/trace.json) of one warm "
+                        "solve (the profiled 3 x 1-iteration solve) of the "
+                        "first --nmpc_batches entry")
     p.add_argument("--batch", type=int, default=500,
                    help="goals per call for --parts trajgen (on the card "
-                        "2^14 runs too)")
+                        "2^14 runs too): profile_throughput.py's TrajGen "
+                        "batch; profile_nmpc.py's --batch (the NMPC rows) "
+                        "is --nmpc_batches here")
     p.add_argument("--config_f", type=str, default=None,
                    help="--parts trajgen: a net's config, for the net path")
     p.add_argument("--ckpt", type=str, default=None)
@@ -681,6 +717,11 @@ def main(argv=None):
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the card); the CPU runs "
                         "--parts trajgen only")
+    return p
+
+
+def main(argv=None):
+    p = build_parser()
     args = p.parse_args(argv)
     parts = set(args.parts.split(","))
     if not parts <= {"loops", "worlds", "fit", "nmpc", "trajgen"}:
@@ -720,9 +761,10 @@ def main(argv=None):
               f"{ceil['hbm_ms']:.3f} ms)", flush=True)
         record.update(fma_flops=ceil["fma_flops"],
                       hbm_bytes_per_s=ceil["hbm_bytes_per_s"])
-    for batch in ([int(b) for b in args.nmpc_batches.split(",")]
-                  if "nmpc" in parts else ()):
-        r = profile_nmpc(device, batch)
+    for i, batch in enumerate([int(b) for b in args.nmpc_batches.split(",")]
+                              if "nmpc" in parts else ()):
+        r = profile_nmpc(device, batch, reps=args.reps,
+                         trace_dir=None if i else args.trace_dir)
         per_it = r["wall"] / max(r["iters"], 1)
         print(f"NMPC solve, f32, B={batch:,} wide-range rows, default "
               f"budgets: {r['wall']:.2f} s, {r['iters']} Newton iterations, "
@@ -736,8 +778,12 @@ def main(argv=None):
               f"iteration (the solve's set-up and diagnostics included); one "
               f"iteration's parts, synchronised: fused derivative pass "
               f"{r['t_deriv']:.1f} ms, SPD solve {r['t_spd']:.2f} ms, line "
-              f"search {r['t_ls']:.1f} ms; device time by kernel: {r['top']}",
-              flush=True)
+              f"search {r['t_ls']:.1f} ms (means of {args.reps}); device "
+              f"time by kernel: {r['top']}", flush=True)
+        if args.trace_dir and not i:
+            print(f"profiler trace of the {r['p_iters']}-iteration solve "
+                  f"written to {os.path.join(args.trace_dir, 'trace.json')}",
+                  flush=True)
         share = r["achieved"] / ceil["fma_flops"]
         print(f"NMPC roofline, B={batch:,}: {r['ops_iter'] / 1e9:.3f} "
               f"GFLOP per Newton iteration (count_ops: matmuls 2mnk, "

@@ -6,6 +6,7 @@ Needs JAX (it reads the YAML config and the orbax checkpoint through
 the npz layout). Writes to ``irbfn_tpu_torch/assets/``:
 
 - ``<run>.npz``  — the flax parameter tree, keys like ``params/core/centers``
+  (compressed)
 - ``<run>.json`` — the YAML config as JSON
 - with ``--golden``, what ``chip_smoke.py`` holds the port against on the
   card. For a Frenet net, ``<run>_golden.npz``:
@@ -150,6 +151,22 @@ the npz layout). Writes to ``irbfn_tpu_torch/assets/``:
 - with ``--demo_golden``, ``demo_golden.npz``: what
   ``scripts/demo_closed_loop.py`` prints at its defaults for ``pursuit``,
   ``goal_mpc`` and ``irbfn`` (laps, progress, mean |ey| and |epsi|).
+- with ``--zoo``, the nine runs of ``ZOO`` (the model zoo, the
+  constraint-centre net, the cluster net, the 3-arm learned bank) as
+  ``<run>.npz|.json``, each with a lean ``<run>_golden.npz``: the first
+  ``N_ZOO`` rows of ``x`` / ``forward_f64`` and ``plan_in`` /
+  ``plan_accel`` / ``plan_steer_vel`` (``ClusterWCRBFNet``: also
+  ``logits_f64``, its gate on the first ``N_ZOO_LOGITS`` rows), and for
+  the six single nets the sweep above cut to ``ZOO_STEPS`` steps
+  (``loop_laps``, ``loop_done``, ``loop_s``, ``loop_ey_mean``); and
+  ``bank_pr_golden.npz``: ``scripts/eval_adaptive.py --nets`` over the
+  three ``bank_pr_mu*`` runs (``BANK_PR_ARGS``) on a bundle of the oval,
+  its JSON, the arms' run names (``nets``) and the bundle's files as
+  bytes; and ``zoo.json``, the nine runs' names (what ``chip_smoke.py``
+  and ``tests/test_torch_zoo.py`` read). Each single net's golden stores
+  its sweep's step count as ``n_steps``. ``--zoo --nudge 1e-6`` runs
+  the six sweeps with nudged starts against those goldens (prints);
+  ``--nudge_seed S`` nudges each start-state entry by +-nudge instead.
 
 Usage (from the repo root):
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --nmpc_golden   # ~6 min
@@ -167,6 +184,9 @@ Usage (from the repo root):
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --quadrotor_golden  # ~1 min
     JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --tracking_golden   # or --sim,
         # --overtake, --ppo, --demo_golden: 15-60 s each
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --zoo   # ~1.5 min
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --zoo --nudge 1e-6
+    JAX_PLATFORMS=cpu python scripts/export_torch_ckpt.py --zoo --nudge 1e-6 --nudge_seed 1
 """
 
 import argparse
@@ -230,26 +250,51 @@ def draw_inputs(bounds, track_length, rng):
     return x, np.concatenate([s, st], axis=1).astype(np.float32)
 
 
-def frenet_golden(model, variables, config):
+def _nudged(x, nudge, seed=None):
+    """Start states scaled by (1 + ``nudge``), or with ``seed`` each entry
+    by (1 + ``nudge`` * s), s = +-1 drawn from numpy's generator."""
+    if seed is None:
+        return x * (1.0 + nudge)
+    s = np.random.default_rng(seed).choice([-1.0, 1.0], size=x.shape)
+    return x * (1.0 + nudge * jnp.asarray(s, x.dtype))
+
+
+def frenet_golden(model, variables, config, rows=N_GOLDEN,
+                  n_steps=LOOP["n_steps"], plan_fields=None, nudge=0.0,
+                  nudge_seed=None):
+    """The forward and ``plan_batch`` on the first ``rows`` of
+    ``draw_inputs`` in f64 (``plan_fields``: which of the plan's fields to
+    keep, None: all), and the sweep of ``n_steps`` control steps in f32 (0:
+    none), its start states nudged by ``_nudged``. A
+    ``ClusterWCRBFNet`` also gives its gate logits on the first
+    ``N_ZOO_LOGITS`` rows."""
     out = {}
     bounds = input_bounds_from_config(config)
     track = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
     rng = np.random.default_rng(0)
     x, plan_in = draw_inputs(bounds, float(track.raceline.length), rng)
+    x, plan_in = x[:rows], plan_in[:rows]
     params64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), variables)
+    fwd = model.apply(params64, jnp.asarray(x, jnp.float64))
+    if isinstance(fwd, tuple):  # ClusterWCRBFNet: (out, gate_logits)
+        fwd, logits = fwd
+        out["logits_f64"] = np.asarray(logits)[:N_ZOO_LOGITS]
     out["x"] = x
-    out["forward_f64"] = np.asarray(model.apply(params64,
-                                                jnp.asarray(x, jnp.float64)))
+    out["forward_f64"] = np.asarray(fwd)
     planner = IRBFNFrenetPlanner(model, params64, track, dtype=jnp.float64,
                                  use_pallas=False, input_bounds=bounds)
     res = planner.plan_batch(*plan_in.T.astype(np.float64))
     out["plan_in"] = plan_in
     for name, v in res._asdict().items():
-        out[f"plan_{name}"] = np.asarray(v)
+        if plan_fields is None or name in plan_fields:
+            out[f"plan_{name}"] = np.asarray(v)
+    if not n_steps:
+        return out
 
     # the closed-loop sweep, in f32 as the eval script runs it
     jax.config.update("jax_enable_x64", False)
     env, sim0, noise, mu, cs = sweep_env(track, "accl")
+    sim0 = sim0._replace(x=_nudged(sim0.x, nudge, nudge_seed))
     params32 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), variables)
     planner32 = IRBFNFrenetPlanner(model, params32, track, use_pallas=False,
                                    input_bounds=bounds)
@@ -260,7 +305,7 @@ def frenet_golden(model, variables, config):
                                  obs.ang_vel_z)
         return jnp.stack([r.accel, r.steer_vel], axis=-1)
 
-    loop = run_sweep(env, sim0, policy)
+    loop = run_sweep(env, sim0, policy, n_steps)
     jax.config.update("jax_enable_x64", True)
     out.update(loop_noise=noise, loop_mu=mu.astype(np.float32),
                loop_cs=cs.astype(np.float32),
@@ -293,16 +338,16 @@ def sweep_env(track, control_mode):
     return env, sim0, noise, mu, cs
 
 
-def run_sweep(env, sim0, policy) -> dict:
+def run_sweep(env, sim0, policy, n_steps=LOOP["n_steps"]) -> dict:
     """Roll the sweep out; per-lane laps, done, final progress, mean |ey|."""
     B = sim0.s.shape[0]
     t0 = time.perf_counter()
-    final, traj = env.rollout(sim0, policy, n_steps=LOOP["n_steps"])
+    final, traj = env.rollout(sim0, policy, n_steps=n_steps)
     ey_mean, _ = deviation_metrics(traj)
     jax.block_until_ready(ey_mean)
     out = dict(laps=np.asarray(final.laps), done=np.asarray(final.done),
                s=np.asarray(final.s), ey_mean=np.asarray(ey_mean))
-    print(f"closed loop: {B} lanes x {LOOP['n_steps']} steps in "
+    print(f"closed loop: {B} lanes x {n_steps} steps in "
           f"{time.perf_counter() - t0:.1f} s (JAX, CPU); completed "
           f"{int((~out['done']).sum())}/{B}, laps>=1 "
           f"{int((out['laps'] >= 1).sum())}, mean|ey| over lanes "
@@ -556,7 +601,8 @@ def export_run(run, out_dir):
     model, variables, config = load_model(f"configs/{run}.yaml",
                                           f"ckpts/{run}")
     os.makedirs(out_dir, exist_ok=True)
-    np.savez(os.path.join(out_dir, f"{run}.npz"), **flatten_tree(variables))
+    np.savez_compressed(os.path.join(out_dir, f"{run}.npz"),
+                        **flatten_tree(variables))
     with open(os.path.join(out_dir, f"{run}.json"), "w") as f:
         json.dump(config, f, indent=1, sort_keys=True)
     print(f"wrote {run}.npz and {run}.json to {out_dir}", flush=True)
@@ -628,6 +674,124 @@ def bank_golden(out_dir, nudge=0.0):
           f"{float(np.median(out['loop_g'])):.3f}, arms used "
           f"{np.bincount(arm.reshape(-1), minlength=len(mus)).tolist()}",
           flush=True)
+    return out
+
+
+# the committed runs that no other flag exports: the model zoo's WCRBF
+# variants, the constraint-centre net (K = 499), the learned-gate cluster
+# net, the deeper and MLP heads, and the 3-arm learned bank
+ZOO = ("arch_wcrbf_pr", "arch_wcrbf_shared", "bank_pr_mu0.60",
+       "bank_pr_mu0.80", "bank_pr_mu1.00", "frenet_wide_cc",
+       "frenet_wide_cluster", "wide_deeper", "wide_mlp")
+ZOO_LOOP_RUNS = tuple(r for r in ZOO if not r.startswith("bank_pr"))
+# the sweep's steps on the card, CUT from 600 for chip_smoke.py's time
+# limit (at 300, its 50 phases took 1,176.0 s of the 1,200 on a slow H100
+# host; no lane finishes a lap in 200 steps, so the sweeps hold done flags
+# and |ey|), and the rows kept: the nine goldens and their nets must fit
+# the repository's size budget beside the other assets
+ZOO_STEPS = 200
+N_ZOO = 256
+N_ZOO_LOGITS = 9  # the cluster gate is affine in 8 inputs: 9 rows pin it
+ZOO_PLAN_FIELDS = ("accel", "steer_vel")
+# scripts/eval_adaptive.py --nets over the three bank_pr_mu* arms, cut
+# (100 steps: at 200, chip_smoke.py's 50 phases took 1,142.9 s of their
+# 1,200 on a slow H100 host)
+BANK_PR_MUS = ("0.60", "0.80", "1.00")
+BANK_PR_ARGS = ("--arm_mus", "0.6", "0.8", "1.0", "--mus", "0.6", "0.8",
+                "1.0", "--css", "5.0", "--episodes", "2",
+                "--baseline_rounds", "1", "--n_steps", "100",
+                "--noise_scale", "0")
+
+
+def zoo_golden(run, out_dir, nudge=0.0, nudge_seed=None):
+    """``<run>.npz|.json`` and ``<run>_golden.npz`` (the lean form of
+    ``frenet_golden``, with the sweep's step count as ``n_steps``); with
+    ``nudge``, only the sweep with nudged starts (``_nudged``) against the
+    committed golden (printed, nothing written)."""
+    if nudge:
+        model, variables, config = load_model(f"configs/{run}.yaml",
+                                              f"ckpts/{run}")
+        with np.load(os.path.join(out_dir, f"{run}_golden.npz")) as z:
+            ref = {k: z[k] for k in z.files}
+        out = frenet_golden(model, variables, config, rows=1,
+                            n_steps=int(ref["n_steps"]), nudge=nudge,
+                            nudge_seed=nudge_seed)
+        d_ey = 1e3 * np.abs(out["loop_ey_mean"] - ref["loop_ey_mean"])
+        d_sweep = 1e3 * abs(out["loop_ey_mean"].mean()
+                            - ref["loop_ey_mean"].mean())
+        how = (f"x(1 + {nudge:g})" if nudge_seed is None else
+               f"x(1 +- {abs(nudge):g}, signs of seed {nudge_seed})")
+        print(f"{run}: JAX against its golden, start states {how}:"
+              f" done differs in "
+              f"{int((out['loop_done'] != ref['loop_done']).sum())} lanes, "
+              f"laps in {int((out['loop_laps'] != ref['loop_laps']).sum())}"
+              f" (by up to "
+              f"{int(np.abs(out['loop_laps'] - ref['loop_laps']).max())});"
+              f" per-lane mean |ey| median {np.median(d_ey):.4f} mm, max "
+              f"{d_ey.max():.2f} mm; sweep {d_sweep:.4f} mm", flush=True)
+        return
+    model, variables, config = export_run(run, out_dir)
+    out = frenet_golden(model, variables, config, rows=N_ZOO,
+                        n_steps=ZOO_STEPS if run in ZOO_LOOP_RUNS else 0,
+                        plan_fields=ZOO_PLAN_FIELDS)
+    for k in ("noise", "mu", "cs"):  # the sweep's, as the flagship stores
+        out.pop(f"loop_{k}", None)
+    if run in ZOO_LOOP_RUNS:
+        out["n_steps"] = np.int64(ZOO_STEPS)
+    name = f"{run}_golden.npz"
+    np.savez_compressed(os.path.join(out_dir, name), **out)
+    print(f"wrote {name}", flush=True)
+
+
+def bank_pr_golden(out_dir):
+    """``bank_pr_golden.npz``: ``scripts/eval_adaptive.py --nets`` over the
+    three ``bank_pr_mu*`` runs with ``BANK_PR_ARGS``, in f32, on a bundle of
+    the oval (its raceline as a CSV, its corridor rasterized at half width
+    2 m): the script's JSON (``results_json``), its flags (``argv``), and
+    every file of the bundle as bytes (``bundle_<file>``), which the card
+    writes back as they are."""
+    import importlib.util
+    import tempfile
+    from unittest import mock
+
+    from irbfn_tpu.sim.map import rasterize_track, save_map_yaml
+
+    out = {"argv": np.array(BANK_PR_ARGS),
+           "nets": np.array([f"bank_pr_mu{m}" for m in BANK_PR_MUS])}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "ovl")
+        os.makedirs(d)
+        track = oval_track(30.0, 15.0, n_samples=512, speed=3.0)
+        rl = track.raceline
+        cols = np.stack([np.asarray(a, np.float64) for a in
+                         (rl.ss, rl.xs, rl.ys, rl.yaws, rl.ks, rl.vxs)], -1)
+        np.savetxt(os.path.join(d, "ovl_raceline.csv"), cols, delimiter=";",
+                   fmt="%.9g",
+                   header="s_m; x_m; y_m; psi_rad; kappa_radpm; vx_mps")
+        omap = rasterize_track(track, half_width=2.0)
+        save_map_yaml(np.asarray(omap.dist) > 0, float(omap.resolution),
+                      (float(omap.origin_x), float(omap.origin_y), 0.0),
+                      os.path.join(d, "ovl_map.yaml"))
+        spec = importlib.util.spec_from_file_location(
+            "eval_adaptive", os.path.join("scripts", "eval_adaptive.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        js = os.path.join(tmp, "results.json")
+        argv = (["eval_adaptive.py", *BANK_PR_ARGS, "--map_dir", d,
+                 "--json_out", js, "--nets"]
+                + [f"configs/bank_pr_mu{m}.yaml:ckpts/bank_pr_mu{m}"
+                   for m in BANK_PR_MUS])
+        jax.config.update("jax_enable_x64", False)
+        try:
+            with mock.patch.object(sys, "argv", argv):
+                mod.main()
+        finally:
+            jax.config.update("jax_enable_x64", True)
+        with open(js) as f:
+            out["results_json"] = np.array(f.read())
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name), "rb") as f:
+                out[f"bundle_{name}"] = np.frombuffer(f.read(), np.uint8)
     return out
 
 
@@ -1518,15 +1682,35 @@ def main():
                         "script's printed results)")):
         ap.add_argument(f"--{flag}_golden", action="store_true",
                         help=f"write {what} (reads no checkpoint) and stop")
+    ap.add_argument("--zoo", action="store_true",
+                    help="write the nine ZOO runs, their lean goldens and "
+                         "bank_pr_golden.npz, and stop")
     ap.add_argument("--nudge", type=float, default=0.0,
-                    help="with --bank_golden: scale the start states by "
-                         "(1 + nudge) and compare with the committed golden "
-                         "instead of writing one")
+                    help="with --bank_golden or --zoo: scale the start "
+                         "states by (1 + nudge) and compare with the "
+                         "committed golden instead of writing one")
+    ap.add_argument("--nudge_seed", type=int, default=None,
+                    help="with --zoo --nudge: scale each start-state entry "
+                         "by (1 + nudge * s) instead, s = +-1 drawn from "
+                         "this seed")
     ap.add_argument("--out_dir", default=ASSETS)
     args = ap.parse_args()
     os.makedirs(args.out_dir, exist_ok=True)
     if args.cheap_pass_check:
         cheap_pass_check(args.out)
+        return
+    if args.zoo:
+        for run in (ZOO_LOOP_RUNS if args.nudge else ZOO):
+            zoo_golden(run, args.out_dir, args.nudge, args.nudge_seed)
+        if not args.nudge:
+            with open(os.path.join(args.out_dir, "zoo.json"), "w") as f:
+                json.dump({"runs": list(ZOO),
+                           "bank": "bank_pr_golden.npz"}, f, indent=1)
+                f.write("\n")
+            np.savez_compressed(os.path.join(args.out_dir,
+                                             "bank_pr_golden.npz"),
+                                **bank_pr_golden(args.out_dir))
+            print("wrote bank_pr_golden.npz")
         return
     if args.clothoid_golden:
         args.run, args.golden = "clothoid_pr", True

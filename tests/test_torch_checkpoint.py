@@ -158,6 +158,29 @@ def test_torch_params_from_jax_other_model_classes(run):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("run", ["wide_mlp", "bank6_pr_mu0.60",
+                                 "not_exported"])
+def test_an_orbax_directory_names_its_export(run, tmp_path, monkeypatch):
+    """The card's machine has no orbax and no PyYAML: a JAX run's
+    checkpoint directory or YAML config given to the port fails naming
+    the committed export, or else the exporter's command."""
+    ckpt = os.path.join("ckpts", run)
+    if run == "not_exported":
+        ckpt = str(tmp_path / run)
+        os.makedirs(os.path.join(ckpt, "0"))
+        hint = f"scripts/export_torch_ckpt.py --run {run}"
+    else:
+        hint = f"its export is irbfn_tpu_torch/assets/{run}.npz"
+    with pytest.raises(FileNotFoundError, match="orbax") as e:
+        load_model(ASSET + ".json", ckpt, device="cpu")
+    assert hint in str(e.value)
+    if run != "not_exported":
+        monkeypatch.setitem(sys.modules, "yaml", None)
+        with pytest.raises(ImportError, match="PyYAML") as e:
+            load_model(f"configs/{run}.yaml", ckpt, device="cpu")
+        assert f"irbfn_tpu_torch/assets/{run}.json" in str(e.value)
+
+
 def test_torch_params_from_jax_checks_shapes(orbax_run):
     _, variables, config = orbax_run
     with pytest.raises(ValueError, match="head_kernel"):

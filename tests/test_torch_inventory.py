@@ -15,9 +15,12 @@ imported from the JAX package), and every script of the repository
 
 A name added on the JAX side alone fails the first test; an entry of the
 tables that no longer names a JAX function, class or script fails the
-second.
+second. Each flag of such a script's parser (read from its source) is a
+flag of its port module's parser, under the same name or the one
+``RENAMED_FLAGS`` states.
 """
 
+import argparse
 import ast
 import importlib
 import os
@@ -100,6 +103,12 @@ SCRIPTS = {
     "scripts/train_frenet.py": "irbfn_tpu_torch.train.train_frenet",
     "scripts/train_goal_mpc.py": "irbfn_tpu_torch.train.train_goal_mpc",
     "scripts/train_ppo.py": "irbfn_tpu_torch.train.train_ppo",
+}
+# (script, its flag) -> the port module's flag where the name differs
+RENAMED_FLAGS = {
+    # the NMPC rows per solve; the port's --batch is profile_throughput.py's
+    # TrajGen batch (both scripts are one module)
+    ("scripts/profile_nmpc.py", "batch"): "nmpc_batches",
 }
 JAX_IMPORT = re.compile(r"^\s*(import jax\b|from jax\b|import irbfn_tpu\b"
                         r"|from irbfn_tpu(\.| import))", re.M)
@@ -200,3 +209,105 @@ def test_the_port_imports_nothing_of_jax():
             if pattern.search(fh.read()):
                 bad.append(os.path.relpath(f, ROOT))
     assert not bad, bad
+
+
+def script_flags(script: str) -> set:
+    """The long flags a script's parser declares, read from its source:
+    ``add_argument`` with a string, or with an f-string inside ``for``
+    loops over literal sequences (or module-level names bound to one)."""
+    with open(os.path.join(ROOT, script)) as fh:
+        tree = ast.parse(fh.read())
+    consts = {}
+    for n in tree.body:
+        if isinstance(n, ast.Assign) and isinstance(n.targets[0], ast.Name):
+            try:
+                consts[n.targets[0].id] = ast.literal_eval(n.value)
+            except ValueError:
+                pass
+    flags = set()
+
+    def bind(target, value, env):
+        if isinstance(target, ast.Name):
+            env[target.id] = value
+        else:
+            for t, v in zip(target.elts, value):
+                bind(t, v, env)
+
+    def text(node, env):
+        if isinstance(node, ast.Constant):
+            return node.value
+        return "".join(str(env[v.value.id]) if isinstance(
+            v, ast.FormattedValue) else v.value for v in node.values)
+
+    def visit(node, env):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr",
+                                                  None) == "add_argument":
+            flag = text(node.args[0], env)
+            if flag.startswith("--"):
+                flags.add(flag[2:])
+        seq = None
+        if isinstance(node, ast.For):
+            try:
+                seq = (consts[node.iter.id] if isinstance(node.iter, ast.Name)
+                       else ast.literal_eval(node.iter))
+            except (KeyError, ValueError):  # not a literal sequence
+                pass
+        if seq is not None:
+            for item in seq:
+                bind(node.target, item, inner := dict(env))
+                for stmt in node.body:
+                    visit(stmt, inner)
+            return
+        for child in ast.iter_child_nodes(node):
+            visit(child, env)
+
+    visit(tree, {})
+    return flags
+
+
+class _Parsed(Exception):
+    pass
+
+
+def port_flags(module: str) -> set:
+    """The long flags of a port module's parser: ``main([])`` is stopped
+    where it parses."""
+    real = (argparse.ArgumentParser.parse_args,
+            argparse.ArgumentParser.parse_known_args)
+    got = []
+
+    def capture(self, *args, **kwargs):
+        got.append(self)
+        raise _Parsed
+
+    mod = importlib.import_module(module)
+    argparse.ArgumentParser.parse_args = capture
+    argparse.ArgumentParser.parse_known_args = capture
+    try:
+        mod.main([])
+    except _Parsed:
+        pass
+    finally:
+        (argparse.ArgumentParser.parse_args,
+         argparse.ArgumentParser.parse_known_args) = real
+    assert got, f"{module}.main([]) parsed nothing"
+    return {o[2:] for o in got[0]._option_string_actions
+            if o.startswith("--")}
+
+
+def test_script_flags_reads_loops_over_literals():
+    assert {"v_car_min", "v_car_max", "d_v_car", "chunk"} <= script_flags(
+        "scripts/gen_goal_mpc_table.py")
+    assert {"batch", "reps", "trace_dir", "json"} == script_flags(
+        "scripts/profile_nmpc.py")
+
+
+@pytest.mark.parametrize("script", sorted(
+    s for s, t in SCRIPTS.items()
+    if t not in REASONS and s != "__graft_entry__.py"))
+def test_every_script_flag_is_a_port_flag(script):
+    flags, ported = script_flags(script), port_flags(SCRIPTS[script])
+    renamed = {f: t for (s, f), t in RENAMED_FLAGS.items() if s == script}
+    assert set(renamed) <= flags, set(renamed) - flags
+    missing = {f for f in flags if renamed.get(f, f) not in ported}
+    assert not missing, sorted(missing)

@@ -13,6 +13,9 @@ on the CPU, against the JAX package's helpers and scripts.
   times it) and kappa 1e-6 (measured: 6.2e-6, 1.4e-6 and 3e-7).
 - The plain FMA chain returns a finite rate, and the chain agrees with its
   closed form; ``count_ops`` tallies by its rule.
+- ``--reps`` and ``--trace_dir`` parse with ``scripts/profile_nmpc.py``'s
+  meanings (``--parts nmpc`` needs the card), and ``traced_solve`` writes
+  the trace of a solve on the CPU at a tiny batch.
 """
 
 import os
@@ -105,6 +108,34 @@ def test_parts_and_device_are_checked():
         tprof.main(["--parts", "nope", "--device", "cpu"])
     with pytest.raises(SystemExit):
         tprof.main(["--parts", "nmpc", "--device", "cpu"])
+
+
+def test_nmpc_flags_parse():
+    args = tprof.build_parser().parse_args(
+        ["--parts", "nmpc", "--nmpc_batches", "1000", "--reps", "4",
+         "--trace_dir", "tr"])
+    assert (args.reps, args.trace_dir, args.nmpc_batches) == (4, "tr", "1000")
+    args = tprof.build_parser().parse_args([])
+    assert args.reps == 32 and args.trace_dir is None  # profile_nmpc.py's
+    assert "--nmpc_batches" in tprof.build_parser().format_help()
+
+
+def test_traced_solve_writes_a_trace_on_the_cpu(tmp_path):
+    import dataclasses
+
+    from irbfn_tpu_torch.dynamics import fullscale_params
+    from irbfn_tpu_torch.parallel.gen_nmpc_table_frenet import wide_rows
+    from irbfn_tpu_torch.solvers.nmpc import NMPCConfig
+
+    rows = torch.as_tensor(wide_rows(4, 0))
+    cfg = dataclasses.replace(NMPCConfig(), gn_iters=1, al_outer=1)
+    prof, wall = tprof.traced_solve(rows, fullscale_params(device="cpu"),
+                                    cfg, str(tmp_path / "tr"))
+    assert wall > 0.0
+    with open(tmp_path / "tr" / "trace.json") as f:
+        text = f.read()
+    assert '"traceEvents"' in text and "aten::" in text
+    assert any(e.key.startswith("aten::") for e in prof.key_averages())
 
 
 def test_plain_fma_chain_rate_is_finite():
