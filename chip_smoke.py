@@ -30,7 +30,8 @@ mode, the sharded lattice solves and the DP x EP dry run on NCCL; and
 the last tools of the JAX package: the raceline makers, the oracle
 generator, the TrajGen harness and the NMPC roofline's ceilings; and
 the committed nets of the zoo, each against its JAX golden and in the
-loop, the learned 3-arm bank and the NMPC profiler's trace. Each
+loop, the learned 3-arm bank and the NMPC profiler's trace; and JAX's
+random streams, which every ``--seed`` of the port draws from. Each
 phase prints one line (phase 48 one a net)
 (the entry points of phases 28-39 and 43 write their own output to
 ``torch_runs/chip_smoke_logs/phase<n>_*.log``), and any failure exits
@@ -181,8 +182,13 @@ non-zero:
     lattice) in both modes: 30 steps against JAX's rollout, the outcome
     against JAX's run, ms per control step;
 38. ``train_ppo`` at its widths for ``PPO_UPDATES`` updates (env steps/s,
-    a finite history, progress rising), and one update from the JAX side's
-    parameters with its draws against the JAX golden;
+    a finite history, progress rising); one update from the JAX side's
+    parameters with its draws against the JAX golden; and one update from
+    ``PPOTrainer(seed=0)``'s own initial weights and draws (JAX's key
+    chain, no replay): the weights bit for bit the golden's ``p0``, the
+    uniforms bit for bit, every permutation, every categorical action
+    (a lane that differs must have a gumbel margin under 1e-5), and the
+    update against the golden's ``p1``;
 39. ``demo_closed_loop`` at its defaults for ``pursuit``, ``irbfn`` and
     ``goal_mpc`` (both kernels' launches counted), and the
     ``demo_traj_fan`` net fan (``clothoid_pr``) against its plain version;
@@ -238,9 +244,15 @@ non-zero:
     their goldens' ``n_steps`` (200), each against its JAX golden;
 49. the learned bank: ``eval_adaptive --nets`` over the three
     ``bank_pr_mu*`` arms on the bundle written back from its golden,
-    against the JAX script's run;
+    against the JAX script's run: its pulls equal JAX's;
 50. ``utils/profiling.py --parts nmpc --reps 4 --trace_dir``: the Chrome
     trace of an NMPC solve names the solver's CUDA kernels.
+
+51. JAX's random streams (``utils/prng.py``) on the card against the same
+    calls on the CPU, bit for bit: a chain of 64 splits and folds, 2^20
+    bits and uniforms, 2^16 normals, truncated normals and gumbels, the sweep's
+    (1000, 3) start noise from ``split(PRNGKey(0))[1]``, and PPO's and
+    EXP3's draws; each draw timed, all of them under ``PRNG_SECONDS``.
 
 The last two lines are a JSON object naming both kernels with their
 launches, errors, times and bounds, and the line
@@ -2977,7 +2989,7 @@ OVERTAKE_GOLDEN = os.path.join(ASSETS, "overtake_golden.npz")
 PPO_GOLDEN = os.path.join(ASSETS, "ppo_golden.npz")
 DEMO_GOLDEN = os.path.join(ASSETS, "demo_golden.npz")
 N_QP = 1024  # random QPs of phase 33, the card's f64 against the CPU's
-PPO_UPDATES = 10  # train_ppo's updates in phase 38 (its curve is 120)
+PPO_UPDATES = 6  # train_ppo's updates in phase 38 (its curve is 120)
 DEMO_STEPS = 400  # demo_closed_loop's default
 
 # - the linear MPC's first controls against the JAX f32 golden: both solves
@@ -3371,8 +3383,9 @@ def _ppo_replay(g, device):
 
 def phase_ppo(device, g):
     """Phase 38: train_ppo at its widths (64 envs x 64 steps, 7 actions,
-    hidden 64-64) for PPO_UPDATES updates, and one update from the JAX
-    side's parameters with its draws against the JAX golden."""
+    hidden 64-64) for PPO_UPDATES updates, one update from the JAX side's
+    parameters with its draws against the JAX golden, and one from the
+    port's own (``_ppo_own_draws``)."""
     import torch
 
     from irbfn_tpu_torch.train import ppo, train_ppo
@@ -3390,13 +3403,7 @@ def phase_ppo(device, g):
     ppo.load_flax_params(trainer.net, p0)
     trainer._draw = _ppo_replay(g, device)
     h1 = trainer.train(n_updates=1)[0]
-    errs = []
-    for i, layer in enumerate(trainer.net.dense_layers()):
-        w = p1["params"][f"Dense_{i}"]
-        for got, ref in ((layer.weight.detach().T, w["kernel"]),
-                         (layer.bias.detach(), w["bias"])):
-            errs.append(float(np.linalg.norm(got.cpu().numpy() - ref)
-                              / np.linalg.norm(ref)))
+    errs = _ppo_update_errors(trainer, p1)
     e_metric = {k: abs(v - float(g[f"metric_{k}"])) for k, v in h1.items()}
     print(f"PPO: train_ppo {PPO_UPDATES} updates of 64 envs x 64 steps "
           f"(REDUCED: the committed curve has 120) at "
@@ -3416,6 +3423,95 @@ def phase_ppo(device, g):
           and max(e_metric.values()) <= TOL_PPO_UPDATE * max(
               1.0, max(abs(v) for v in h1.values())),
           f"PPO update vs JAX: {errs}, {e_metric}")
+    _ppo_own_draws(device, g, p0, p1)
+
+
+def _ppo_update_errors(trainer, p1):
+    """Each parameter tensor's relative error against the golden's p1."""
+    errs = []
+    for i, layer in enumerate(trainer.net.dense_layers()):
+        w = p1["params"][f"Dense_{i}"]
+        for got, ref in ((layer.weight.detach().T, w["kernel"]),
+                         (layer.bias.detach(), w["bias"])):
+            errs.append(float(np.linalg.norm(got.cpu().numpy() - ref)
+                              / np.linalg.norm(ref)))
+    return errs
+
+
+def _ppo_own_draws(device, g, p0, p1):
+    """Phase 38's run without replay: ``PPOTrainer(seed=0)`` on the card
+    makes its initial weights and its 70 draws from JAX's key chain."""
+    import torch
+
+    from irbfn_tpu_torch.train import ppo, train_ppo
+    from irbfn_tpu_torch.utils import prng
+
+    trainer = ppo.PPOTrainer(train_ppo.make_env(device), ppo.PPOConfig(),
+                             n_lattice=7, seed=0)
+    e_p0 = max(float(np.abs(
+        layer.weight.detach().T.cpu().numpy()
+        - p0["params"][f"Dense_{i}"]["kernel"]).max())
+        for i, layer in enumerate(trainer.net.dense_layers()))
+    own, drawn = trainer._draw, []
+
+    def recording(kind, arg):
+        key = trainer.key
+        v = own(kind, arg)
+        margin = None
+        if kind == "action":  # the gap between the best two noisy logits
+            z = prng.gumbel(prng.split(key)[1], arg.shape) + arg
+            top = torch.topk(z, 2, dim=-1).values
+            margin = (top[:, 0] - top[:, 1]).cpu().numpy()
+        drawn.append((kind, v.cpu().numpy(), margin))
+        return v
+
+    trainer._draw = recording
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h1 = trainer.train(n_updates=1)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kinds = list(g["draw_kinds"])
+    want = {"s0": "uniform", "action": "categorical", "perm": "permutation"}
+    check([want[k] for k, _, _ in drawn] == kinds,
+          f"PPO's own draws: kinds {[k for k, _, _ in drawn]}")
+    n_uniform = n_perm = n_lanes = 0
+    bad_uniform = bad_perm = n_flip = n_flip_near = 0
+    for i, (kind, v, margin) in enumerate(drawn):
+        ref = g[f"draw_{i}"]
+        if kind == "s0":
+            n_uniform += 1
+            bad_uniform += int(not np.array_equal(v.view(np.int32),
+                                                  ref.view(np.int32)))
+        elif kind == "perm":
+            n_perm += 1
+            bad_perm += int(not np.array_equal(v, ref))
+        else:
+            n_lanes += v.size
+            flip = v != ref
+            n_flip += int(flip.sum())
+            n_flip_near += int((flip & (margin < 1e-5)).sum())
+    errs = _ppo_update_errors(trainer, p1)
+    e_metric = {k: abs(v - float(g[f"metric_{k}"])) for k, v in h1.items()}
+    print(f"PPO, PPOTrainer(seed=0)'s own weights and draws (no replay): "
+          f"initial weights max|diff| from JAX's p0 {e_p0:.1e} (tol 0); "
+          f"{n_uniform - bad_uniform}/{n_uniform} uniforms and "
+          f"{n_perm - bad_perm}/{n_perm} permutations bit for bit; "
+          f"categorical actions differ on {n_flip}/{n_lanes} lanes "
+          f"({n_flip_near} with a gumbel margin under 1e-5; predicted 0); "
+          f"update's parameter tensors' relative error max {max(errs):.2e}"
+          f" (tol {TOL_PPO_UPDATE}), metrics {h1}; {wall:.2f} s",
+          flush=True)
+    check(e_p0 == 0.0, f"PPO's own initial weights vs JAX's p0: {e_p0}")
+    check(bad_uniform == 0 and bad_perm == 0,
+          f"PPO's own draws: {bad_uniform} uniforms, {bad_perm} "
+          "permutations differ from JAX's")
+    check(n_flip == n_flip_near, f"PPO's own actions: {n_flip} lanes "
+          f"differ from JAX's, {n_flip - n_flip_near} by a margin over 1e-5")
+    check(max(errs) <= TOL_PPO_UPDATE
+          and max(e_metric.values()) <= TOL_PPO_UPDATE * max(
+              1.0, max(abs(v) for v in h1.values())),
+          f"PPO's own update vs JAX: {errs}, {e_metric}")
 
 
 def phase_demos(device, g):
@@ -4546,7 +4642,8 @@ def phase_zoo_loops(device, golden):
 def phase_learned_bank(device):
     """Phase 49: ``eval_adaptive --nets`` over the three ``bank_pr_mu*``
     arms on the bundle that ``bank_pr_golden.npz`` holds (written back byte
-    for byte), with the JAX run's flags, against the JAX script's JSON.
+    for byte), with the JAX run's flags, against the JAX script's JSON: the
+    same pulls, since the bandits draw JAX's arms.
     Returns the kernel's launches: every arm's forward at every step of
     every round (the episodes and each arm's fixed baselines)."""
     import torch
@@ -4599,7 +4696,8 @@ def phase_learned_bank(device):
           f"{np.round(np.asarray(ref['fixed_rewards']), 4).tolist()}), "
           f"max|diff| {e_fixed:.2e} (tol {TOL_ADAPTIVE_REWARD:g}); speed "
           f"scales rel {e_speed:.1e} (tol 1e-12); pulled arms "
-          f"{pulls.tolist()}, each round's reward its arm's baseline to "
+          f"{pulls.tolist()} (JAX {ref['pulls']}), each round's reward its "
+          f"arm's baseline to "
           f"{e_pulled:.1e}; {launches} rbf_forward launches ({n_arms} per "
           f"step); {wall:.1f} s", flush=True)
     check(res["mode"] == ref["mode"] == "learned" and set(res) == set(ref),
@@ -4610,6 +4708,8 @@ def phase_learned_bank(device):
     check(pulls.shape == (int(flag["--episodes"]), len(ref["combos"]))
           and ((pulls >= 0) & (pulls < n_arms)).all() and e_pulled <= 1e-6,
           f"learned bank: pulls {pulls.tolist()}, rewards {rewards.tolist()}")
+    check(pulls.tolist() == ref["pulls"], f"learned bank: pulls "
+          f"{pulls.tolist()}, JAX's {ref['pulls']} for the same seed")
     return launches
 
 
@@ -4645,6 +4745,83 @@ def phase_nmpc_trace(device):
           + f"); the tool's run {wall:.1f} s (its lines in "
           "torch_runs/chip_smoke_logs/phase50_profiling_nmpc.log)",
           flush=True)
+
+
+PRNG_SECONDS = 10.0  # phase 51's budget for all of its draws on the card
+
+
+def phase_prng(device):
+    """Phase 51: ``utils/prng.py``'s draws on the card against the same
+    calls on the CPU, bit for bit, each timed on the card. Returns the
+    milliseconds by draw."""
+    import torch
+
+    from irbfn_tpu_torch.utils import prng
+
+    n, m = 1 << 20, 1 << 16  # the CPU's side of the normal family is slow
+    logits = torch.as_tensor(np.random.default_rng(0).normal(
+        0, 2, (64, 7)).astype(np.float32))
+    probs = torch.as_tensor(np.random.default_rng(1).dirichlet(
+        np.ones(12)).astype(np.float32))
+
+    def chain(dev):  # 64 splits, each subkey folded with its index
+        k, out = prng.PRNGKey(0, device=dev), []
+        for i in range(64):
+            k, sub = prng.split(k)
+            out.append(prng.fold_in(sub, i))
+        return torch.stack(out)
+
+    def exp3(dev):  # 64 pulls of a 12-arm bandit, JAX's choice
+        k, out = prng.PRNGKey(3, device=dev), []
+        for _ in range(64):
+            k, sub = prng.split(k)
+            out.append(prng.choice(sub, 12, probs.to(dev)))
+        return torch.stack(out)
+
+    def key(seed, dev):
+        return prng.PRNGKey(seed, device=dev)
+
+    draws = {
+        "key chain (64 splits + folds)": chain,
+        "bits (2^20)": lambda d: prng.bits(key(1, d), (n,)),
+        "uniform (2^20, [-3, 5.5))": lambda d: prng.uniform(
+            key(2, d), (n,), minval=-3.0, maxval=5.5),
+        "sweep start noise (1000, 3)": lambda d: prng.normal(
+            prng.split(key(0, d))[1], (1000, 3)),
+        "normal (2^16)": lambda d: prng.normal(key(4, d), (m,)),
+        "truncated normal (2^16)": lambda d: prng.truncated_normal(
+            key(5, d), -2, 2, (m,)),
+        "gumbel (2^16)": lambda d: prng.gumbel(key(6, d), (m,)),
+        "PPO start uniform (64)": lambda d: prng.uniform(
+            key(7, d), (64,), maxval=50.0),
+        "PPO categorical (64 x 7)": lambda d: prng.categorical(
+            key(8, d), logits.to(d)),
+        "PPO permutation (4096)": lambda d: prng.permutation(key(9, d),
+                                                             4096),
+        "EXP3 choice (64 pulls, 12 arms)": exp3,
+    }
+    ms, differ = {}, []
+    for name, fn in draws.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(device)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        got, want = got.cpu(), fn("cpu")
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            differ.append(name)
+    total = sum(ms.values()) / 1e3
+    print("JAX's streams on the card against the CPU, bit for bit: "
+          + "; ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f"; {total:.2f} s in all (budget {PRNG_SECONDS:g} s)"
+          + (f"; DIFFER: {', '.join(differ)}" if differ else ""),
+          flush=True)
+    check(not differ, f"prng on the card differs from the CPU: {differ}")
+    check(total <= PRNG_SECONDS, f"prng draws took {total:.2f} s on the "
+          f"card, over {PRNG_SECONDS:g} s")
+    return ms
 
 
 def committed_zoo(device, flagship, golden):
@@ -4744,11 +4921,13 @@ def main() -> int:
     trajgen_rbf = port_tools(device)
     # the committed zoo, its loops, the learned bank, the NMPC trace
     zoo_rbf, zoo_times = committed_zoo(device, model, golden)
+    # JAX's random streams on the card
+    phase_prng(device)
     print("seconds by phase function and group: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(SECONDS.items(),
                                           key=lambda kv: -kv[1])),
           flush=True)
-    print(f"all 50 phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"all 51 phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(CARD[-1], flush=True)
     print(json.dumps({"kernels": [

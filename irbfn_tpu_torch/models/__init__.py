@@ -22,12 +22,13 @@ MODEL_CLASSES = {
 
 
 def from_config(config: dict, dtype=None, device=None, centers=None,
-                model_class: str = "WCRBFNet", seed=None):
+                model_class: str = "WCRBFNet", seed=None, key=None):
     """Rebuild a model from a trainer-written config dict (the YAML schema
     of ``irbfn_tpu.train.save_config``, read here from JSON), on ``device``
     (None: the card). ``centers`` warm-starts a WCRBFNet's center bank and
-    ``seed`` draws initial weights; without them every weight is zero, to
-    be loaded."""
+    ``key`` (a ``utils/prng.py`` key; ``seed=s`` means ``PRNGKey(s)``)
+    draws the initial weights flax's ``init`` gives the JAX class; without
+    them every weight is zero, to be loaded."""
     import torch
 
     name = config.get("model_class", model_class)
@@ -42,7 +43,7 @@ def from_config(config: dict, dtype=None, device=None, centers=None,
         basis_func=config["basis_func"],
         num_regions=config["num_regions"],
         dtype=torch.float32 if dtype is None else dtype,
-        device=device, seed=seed,
+        device=device, seed=seed, key=key,
     )
     if cls is not ClusterWCRBFNet:
         kwargs.update(

@@ -48,6 +48,7 @@ from torch import nn
 from irbfn_tpu_torch._device import resolve_device
 from irbfn_tpu_torch.models.kernels import BASIS_FUNCTIONS
 from irbfn_tpu_torch.ops import rbf as _rbf
+from irbfn_tpu_torch.utils import prng
 
 
 def build_region_bounds(lower_bounds, upper_bounds, dimension_ranges,
@@ -155,16 +156,6 @@ def expert_sum(t: torch.Tensor, shard: Optional[ExpertShard]):
     return _ExpertSum.apply(t, shard.group)
 
 
-def _dense_init(gen, fan_in: int, fan_out: int) -> torch.Tensor:
-    """The JAX package's default Dense kernel initialiser (LeCun normal: a
-    normal of variance 1/fan_in truncated at two standard deviations),
-    ``(in, out)``."""
-    w = torch.empty((fan_in, fan_out), dtype=torch.float64)
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                 generator=gen)
-
-
 def _check_basis(basis_func: str):
     if basis_func not in BASIS_FUNCTIONS:
         raise KeyError(f"unknown basis function {basis_func!r}; "
@@ -173,7 +164,7 @@ def _check_basis(basis_func: str):
 
 class _RBFModule(nn.Module):
     """What the four model classes share: Dense layers as ``<name>_kernel``
-    (in, out) and ``<name>_bias`` parameters, the center bank, and seeded
+    (in, out) and ``<name>_bias`` parameters, the center bank, and flax's
     initial values."""
 
     def _add_dense(self, name: str, fan_in: int, fan_out: int, kw: dict):
@@ -214,25 +205,48 @@ class _RBFModule(nn.Module):
             persistent=False)
 
     @torch.no_grad()
-    def reset_parameters(self, seed: int, centers=None):
-        """Seeded initial values, the JAX package's defaults: Dense kernels
-        LeCun normal and biases zero; centers unit normal, or ``centers``
-        ((K, F), shared by every region, or (R, K, F)) as a warm start;
-        log-widths zero. Drawn on the host from ``torch.Generator().manual_seed(seed)``
-        whatever the module's device."""
-        gen = torch.Generator().manual_seed(int(seed))
+    def reset_parameters(self, key, centers=None):
+        """The initial values flax's ``module.init(key, x)`` gives the JAX
+        class: each Dense kernel LeCun normal from its layer's key, biases
+        zero; centers unit normal from the core's key, or ``centers`` ((K, F),
+        shared by every region, or (R, K, F)) as a warm start; log-widths
+        zero. ``key`` is a ``utils/prng.py`` key or an int seed (its
+        ``PRNGKey``). Drawn in f32 on the host, as JAX makes them, then cast
+        to the module's dtype."""
+        key = prng.as_key(key, "cpu")
         for name, p in self.named_parameters():
             if name.endswith("_kernel"):
-                p.copy_(_dense_init(gen, *p.shape))
+                v = prng.lecun_normal(
+                    prng.param_key(key, _flax_scope(name)), p.shape)
             elif name == "centers" and centers is None:
-                p.copy_(torch.randn(p.shape, generator=gen,
-                                    dtype=torch.float64))
+                # a frozen bank is a constant the JAX class draws from
+                # PRNGKey(0); a trainable one is the core's first parameter
+                v = prng.normal(prng.param_key(key, "core")
+                                if p.requires_grad else prng.PRNGKey(0),
+                                p.shape)
             elif name == "centers":
-                c = torch.as_tensor(np.asarray(centers, np.float64))
-                p.copy_(c.expand(p.shape))
+                v = torch.as_tensor(np.asarray(centers, np.float64)).expand(
+                    p.shape)
             else:
-                p.zero_()
+                v = torch.zeros(p.shape)
+            p.copy_(v)
         return self
+
+
+def _init_key(seed, key):
+    """A constructor's initial-value key: ``key``, else ``PRNGKey(seed)``,
+    else None."""
+    return key if key is not None or seed is None else prng.PRNGKey(seed)
+
+
+def _flax_scope(name: str) -> str:
+    """The flax Dense module of the port's ``<layer>_kernel``: ``Dense_<i>``
+    for the MLP's ``dense<i>``, else the layer's name (``head``, ``pre1``,
+    ``gate``)."""
+    layer = name.rsplit("_", 1)[0]
+    if layer.startswith("dense"):
+        return f"Dense_{layer[5:]}"
+    return layer
 
 
 class WCRBFNet(_RBFModule):
@@ -248,9 +262,10 @@ class WCRBFNet(_RBFModule):
     ``fixed_centers`` freezes it and ``fixed_width`` the log-widths as well
     (frozen tensors stay parameters of the ``state_dict`` with
     ``requires_grad=False``, and a checkpoint keeps them in the JAX package's
-    ``constants`` collection). ``seed`` draws initial values
-    (``reset_parameters``); without it every weight starts at zero, to be
-    loaded or fitted.
+    ``constants`` collection). ``key`` (a ``utils/prng.py`` key; ``seed=s``
+    means ``PRNGKey(s)``) draws flax's initial values
+    (``reset_parameters``); without either every weight starts at zero, to
+    be loaded or fitted.
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -262,7 +277,8 @@ class WCRBFNet(_RBFModule):
                  input_scale: Optional[Sequence[float]] = None,
                  head_mode: str = "shared", dtype=torch.float32,
                  device=None, centers=None, fixed_centers: bool = False,
-                 fixed_width: bool = False, seed: Optional[int] = None):
+                 fixed_width: bool = False, seed: Optional[int] = None,
+                 key=None):
         super().__init__()
         _check_basis(basis_func)
         if head_mode not in ("shared", "per_region"):
@@ -297,10 +313,11 @@ class WCRBFNet(_RBFModule):
             self._register_constant(name, val, kw)
 
         self._operands = (None, None)  # (key, RBFOperands) of the last pack
-        if seed is not None or centers is not None:
-            self.reset_parameters(0 if seed is None else seed, centers)
         self.centers.requires_grad_(not fixed_centers)
         self.log_sigs.requires_grad_(not fixed_width)
+        key = _init_key(seed, key)
+        if key is not None or centers is not None:
+            self.reset_parameters(0 if key is None else key, centers)
 
     def kernel_operands(self) -> "_rbf.RBFOperands":
         """``ops/rbf.py:wcrbf_params_to_kernel(self)``, packed once and kept
@@ -384,7 +401,7 @@ class DeeperWCRBFNet(_RBFModule):
                  activation_idx, delta, hidden: int = 64,
                  input_scale: Optional[Sequence[float]] = None,
                  dtype=torch.float32, device=None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, key=None):
         super().__init__()
         _check_basis(basis_func)
         self.basis_func = basis_func
@@ -397,8 +414,9 @@ class DeeperWCRBFNet(_RBFModule):
         _geometric_gate(self, lower_bounds, upper_bounds, dimension_ranges,
                         activation_idx, delta, kw)
         self._register_constant("input_scale", input_scale, kw)
-        if seed is not None:
-            self.reset_parameters(seed)
+        key = _init_key(seed, key)
+        if key is not None:
+            self.reset_parameters(key)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gamma = region_activation(x, self.gate_lb.to(x.dtype),
@@ -422,15 +440,16 @@ class MLP(_RBFModule):
                  lower_bounds=(), upper_bounds=(), dimension_ranges=(),
                  activation_idx=(), delta=(), input_scale=None,
                  dtype=torch.float32, device=None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, key=None):
         super().__init__()
         kw = dict(dtype=dtype, device=resolve_device(device))
         K = int(num_kernels)
         widths = (int(in_features), K // 2, K, K // 2, int(out_features))
         for i in range(4):
             self._add_dense(f"dense{i}", widths[i], widths[i + 1], kw)
-        if seed is not None:
-            self.reset_parameters(seed)
+        key = _init_key(seed, key)
+        if key is not None:
+            self.reset_parameters(key)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
@@ -453,7 +472,7 @@ class ClusterWCRBFNet(_RBFModule):
                  num_kernels: int, basis_func: str, num_regions: int,
                  input_scale: Optional[Sequence[float]] = None,
                  dtype=torch.float32, device=None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, key=None):
         super().__init__()
         _check_basis(basis_func)
         self.basis_func = basis_func
@@ -463,8 +482,9 @@ class ClusterWCRBFNet(_RBFModule):
         self._add_dense("gate", F, R, kw)
         self._add_dense("head", K, int(out_features), kw)
         self._register_constant("input_scale", input_scale, kw)
-        if seed is not None:
-            self.reset_parameters(seed)
+        key = _init_key(seed, key)
+        if key is not None:
+            self.reset_parameters(key)
 
     def forward(self, x: torch.Tensor):
         logits = self._dense("gate", x)

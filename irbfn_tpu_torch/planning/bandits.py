@@ -5,17 +5,18 @@ updates, gamma-mixed sampling, sigmoid reward squashing, used by the
 adaptive planners to pick among models trained for different (mu, cs)
 dynamics. The state functions are pure; a small stateful wrapper mirrors the
 reference object API. The bandit lives on the host (a handful of floats per
-episode). Arm draws come from a seeded numpy generator, so for one seed the
-arm sequence is not the JAX package's (its draws come from a JAX PRNG key);
-given the same arms and rewards the weights are the same.
+episode). Arms are drawn as the JAX package draws them, ``choice(key, n,
+p=probs)`` in f32 from a key split off ``PRNGKey(seed)`` for each pull
+(``utils/prng.py``), so one seed gives the JAX package's arms.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
+
+from irbfn_tpu_torch.utils import prng
 
 
 class EXP3State(NamedTuple):
@@ -36,11 +37,11 @@ def exp3_probs(state: EXP3State) -> torch.Tensor:
             + state.gamma / n)
 
 
-def exp3_pull(state: EXP3State, rng: np.random.Generator) -> tuple:
-    """Draw an arm from the gamma-mixed distribution with ``rng``."""
+def exp3_pull(state: EXP3State, key) -> tuple:
+    """Draw an arm from the gamma-mixed distribution with ``key`` (a
+    ``utils/prng.py`` key): JAX's ``choice(key, n, p=probs)``."""
     probs = exp3_probs(state)
-    p = probs.double().numpy()
-    arm = int(rng.choice(p.shape[0], p=p / p.sum()))
+    arm = int(prng.choice(key, probs.shape[0], probs))
     return arm, state._replace(last_probs=probs)
 
 
@@ -79,7 +80,7 @@ class EXP3:
     def __init__(self, n: int, gamma: float, seed: int = 0):
         self.n = n
         self.gamma = gamma
-        self._rng = np.random.default_rng(seed)
+        self._key = prng.PRNGKey(seed)
         self.state = exp3_init(n, gamma)
 
     def reset(self):
@@ -90,7 +91,8 @@ class EXP3:
         return self.state.weights.numpy()
 
     def pull_arm(self) -> int:
-        arm, self.state = exp3_pull(self.state, self._rng)
+        self._key, sub = prng.split(self._key)
+        arm, self.state = exp3_pull(self.state, sub)
         return arm
 
     def update_dist(self, i: int, r: float,

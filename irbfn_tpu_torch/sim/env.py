@@ -23,6 +23,7 @@ from irbfn_tpu_torch.dynamics.params import VehicleParams
 from irbfn_tpu_torch.dynamics.single_track import blended_deriv, rk4_step
 from irbfn_tpu_torch.sim.safety import ACTION_MODES
 from irbfn_tpu_torch.sim.track import Track
+from irbfn_tpu_torch.utils import prng
 
 
 class SimState(NamedTuple):
@@ -119,11 +120,13 @@ class TrackEnv:
                 dtype=params.dtype, device=params.dt.device)
 
     def reset(self, s0=0.0, ey0=0.0, speed0=0.1, noise=None,
-              noise_scale: float = 0.0, batch_shape=()) -> SimState:
+              noise_scale: float = 0.0, batch_shape=(), key=None) -> SimState:
         """Start on the raceline at arc length s0, plus optional pose noise
-        ``noise_scale * noise`` on (x, y, theta). ``noise`` is a tensor of
-        shape ``batch_shape + (3,)`` of unit-normal draws, or a
-        ``torch.Generator`` to draw them with."""
+        ``noise_scale * noise`` on (x, y, theta). The noise is JAX's draw
+        from ``key`` (a ``utils/prng.py`` key): ``noise_scale *
+        normal(key, batch_shape + (3,))`` in f32, as the JAX package's
+        ``reset(key=...)``; or ``noise``, a tensor of shape ``batch_shape +
+        (3,)`` of unit-normal values."""
         p = self.params
         dtype, device = p.dtype, p.dt.device
         s0 = torch.as_tensor(s0, dtype=dtype, device=device).broadcast_to(
@@ -132,13 +135,14 @@ class TrackEnv:
             batch_shape)
         x, y, theta = self.track.frenet_to_cartesian(s0, ey0,
                                                      torch.zeros_like(s0))
-        if noise is not None and noise_scale > 0:
-            if isinstance(noise, torch.Generator):
-                noise = torch.randn(tuple(batch_shape) + (3,),
-                                    generator=noise, dtype=dtype,
-                                    device=noise.device).to(device)
-            noise = noise_scale * torch.as_tensor(noise, dtype=dtype,
-                                                  device=device)
+        if noise_scale > 0 and (key is not None or noise is not None):
+            if key is not None:
+                noise = noise_scale * prng.normal(
+                    key.to(device), tuple(batch_shape) + (3,))
+            else:
+                noise = noise_scale * torch.as_tensor(noise, dtype=dtype,
+                                                      device=device)
+            noise = noise.to(dtype)
             x = x + noise[..., 0]
             y = y + noise[..., 1]
             theta = theta + noise[..., 2]

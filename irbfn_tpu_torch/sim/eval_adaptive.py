@@ -7,7 +7,10 @@ progress. All combos run as ONE batch per episode round: the table bank is
 one multilinear lookup with the arm as an extra exact-integer grid dimension
 (``planning/explicit.py:stack_grid_tables``), the net bank one forward per
 arm and a gather by arm (``planning/planner.py:stack_net_bank``). Every fixed
-arm is also run over every combo, for the adaptive-vs-fixed table.
+arm is also run over every combo, for the adaptive-vs-fixed table. Start
+noise and arms are the JAX script's draws for ``--seed``: one key split per
+round from ``PRNGKey(seed)``, and bandit i seeded ``seed + i``
+(``utils/prng.py``).
 
 Usage: ``python -m irbfn_tpu_torch.sim.eval_adaptive --map_dir BUNDLE
 --arm_mus 0.6 0.8 1.0 (--tables T1.npz T2.npz T3.npz | --nets C1:K1 ...)
@@ -32,6 +35,7 @@ from irbfn_tpu_torch.planning.planner import frenet_query
 from irbfn_tpu_torch.sim.env import TrackEnv
 from irbfn_tpu_torch.sim.map import load_track_bundle
 from irbfn_tpu_torch.sim.track import horizon_goal_speed, interp_wrapped
+from irbfn_tpu_torch.utils import prng
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -162,12 +166,10 @@ def run(args) -> dict:
 
         return policy
 
-    gen = torch.Generator().manual_seed(args.seed)
-
-    def run_round(arms):
+    def run_round(arms, key):
         arm_b = torch.as_tensor(np.asarray(arms), dtype=torch.float32,
                                 device=device)
-        sim0 = env.reset(s0=0.0, speed0=1.0, noise=gen,
+        sim0 = env.reset(s0=0.0, speed0=1.0, key=key,
                          noise_scale=args.noise_scale, batch_shape=(B,))
         final, _ = env.rollout(sim0, make_policy(arm_b), args.n_steps)
         # reward: lap progress (a crash freezes s; a completed lap keeps
@@ -175,11 +177,15 @@ def run(args) -> dict:
         prog = final.s.cpu().numpy() / float(rl.length)
         return np.clip(prog / args.prog_norm, 0.0, 1.0)
 
+    # the JAX script's key chain: one split per round, baselines first
+    key = prng.PRNGKey(args.seed)
+
     # fixed-arm baselines: every arm over every combo, averaged over rounds
     fixed = np.zeros((n_arms, B))
     for a in range(n_arms):
         for _ in range(args.baseline_rounds):
-            fixed[a] += run_round(np.full(B, a))
+            key, sub = prng.split(key)
+            fixed[a] += run_round(np.full(B, a), sub)
         fixed[a] /= args.baseline_rounds
         print(f"fixed arm mu={args.arm_mus[a]}: "
               + " ".join(f"{combos[i][0]:.1f}/{combos[i][1]:.0f}:"
@@ -190,7 +196,8 @@ def run(args) -> dict:
     rewards = np.zeros((args.episodes, B))
     for ep in range(args.episodes):
         arms = np.asarray([b.pull_arm() for b in bandits])
-        r = run_round(arms)
+        key, sub = prng.split(key)
+        r = run_round(arms, sub)
         for i, b in enumerate(bandits):
             # rewards are lap-progress fractions in [0, 1] already: the
             # reference's sigmoid squash would collapse the arms' gap

@@ -11,7 +11,8 @@ learned planner), ``nmpc`` (the batched solver in the loop), ``explicit``
 infeasible cell), ``goal_mpc``, ``goal_mpc_net`` and ``pursuit``. All (mu,
 cs, trial) episodes run as ONE batch on the device; failed trials
 (off-track or a crash before the horizon ends) are retried with fresh start
-noise. The world is the synthetic oval with a corridor, or a reference-format
+noise, drawn as the JAX script draws it: ``key, sub = split(key)`` from
+``PRNGKey(--seed)`` for each attempt (``utils/prng.py``). The world is the synthetic oval with a corridor, or a reference-format
 track bundle (``--map_dir``: collision against the occupancy map instead,
 ``--line``/``--line_csv`` for the line followed).
 
@@ -34,6 +35,7 @@ from irbfn_tpu_torch.dynamics.params import (VehicleParams, f1tenth_params,
 from irbfn_tpu_torch.sim.env import TrackEnv, deviation_metrics
 from irbfn_tpu_torch.sim.track import (horizon_goal_speed, interp_wrapped,
                                        oval_track)
+from irbfn_tpu_torch.utils import prng
 from irbfn_tpu_torch.utils.args import add_eval_args
 
 PLANNERS = ("irbfn", "irbfn_adaptive", "irbfn_cart", "nmpc", "explicit",
@@ -307,7 +309,7 @@ def run(args, on_attempt=None) -> dict:
     init_state = None
     if isinstance(policy, tuple):  # stateful planner (grip observer carry)
         policy, init_state = policy
-    gen = torch.Generator().manual_seed(args.seed)
+    key = prng.PRNGKey(args.seed)
 
     # trial loop with noisy-start retries: rerun the batched rollout,
     # keeping each episode's first successful attempt
@@ -320,7 +322,8 @@ def run(args, on_attempt=None) -> dict:
     tube_chunks = []
     rl = track.raceline
     for attempt in range(args.max_retries + 1):
-        sim0 = env.reset(s0=0.0, speed0=1.0, noise=gen,
+        key, sub = prng.split(key)
+        sim0 = env.reset(s0=0.0, speed0=1.0, key=sub,
                          noise_scale=args.noise_scale, batch_shape=(B,))
         if init_state is not None:
             final, pstate, traj = env.rollout_stateful(

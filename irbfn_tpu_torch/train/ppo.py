@@ -15,7 +15,9 @@ Port of ``irbfn_tpu/train/ppo.py``:
 Crashed envs are reset at the start of every update (episodes freeze when
 they end, so without it the live pool would shrink). Every random draw
 (start positions, actions, minibatch permutations) goes through
-``PPOTrainer._draw`` on one ``torch.Generator``.
+``PPOTrainer._draw``, which splits the JAX trainer's key chain
+(``utils/prng.py``): one ``seed`` gives the JAX package's initial weights
+and draws.
 """
 
 from __future__ import annotations
@@ -26,18 +28,21 @@ import numpy as np
 import torch
 from torch import nn
 
-from irbfn_tpu_torch.models.wcrbf import _dense_init
 from irbfn_tpu_torch.sim.env import SimState, TrackEnv
 from irbfn_tpu_torch.sim.map import linspace
 from irbfn_tpu_torch.train.trainer import clip_by_global_norm_
+from irbfn_tpu_torch.utils import prng
 
 
 class ActorCritic(nn.Module):
-    """tanh MLP trunk with a logits head and a value head."""
+    """tanh MLP trunk with a logits head and a value head. Its initial
+    weights are the ones flax's ``init`` gives the JAX module from ``key``
+    (``seed=s`` means ``PRNGKey(s)``): each ``Dense_i`` kernel LeCun normal
+    from that layer's key, biases zero."""
 
     def __init__(self, n_actions: int, hidden: Sequence[int] = (64, 64),
                  in_features: int = 8, seed: int = 0, dtype=torch.float32,
-                 device=None):
+                 device=None, key=None):
         super().__init__()
         widths = [in_features, *hidden]
         kw = dict(dtype=dtype, device=device)
@@ -45,12 +50,12 @@ class ActorCritic(nn.Module):
                                     for a, b in zip(widths, widths[1:]))
         self.logits = nn.Linear(widths[-1], n_actions, **kw)
         self.value = nn.Linear(widths[-1], 1, **kw)
-        # the JAX package's Dense defaults: LeCun-normal kernels, zero biases
-        gen = torch.Generator().manual_seed(int(seed))
+        key = prng.as_key(seed if key is None else key, "cpu")
         with torch.no_grad():
-            for layer in self.dense_layers():
-                layer.weight.copy_(_dense_init(gen, layer.in_features,
-                                               layer.out_features).T)
+            for i, layer in enumerate(self.dense_layers()):
+                layer.weight.copy_(prng.lecun_normal(
+                    prng.param_key(key, f"Dense_{i}"),
+                    (layer.in_features, layer.out_features)).T)
                 layer.bias.zero_()
 
     def dense_layers(self) -> list:
@@ -171,26 +176,28 @@ class PPOTrainer:
         self.device = device
         self.offsets = make_lattice_actions(n_lattice, dtype=dtype,
                                             device=device)
-        self.net = ActorCritic(n_actions=n_lattice, seed=seed, device=device)
+        # the JAX trainer's keys: rng, init_rng = split(PRNGKey(seed))
+        self.key, init_key = prng.split(prng.PRNGKey(seed, device=device))
+        self.net = ActorCritic(n_actions=n_lattice, key=init_key,
+                               device=device)
         self.params = list(self.net.parameters())
         self.optimizer = torch.optim.Adam(self.params, lr=cfg.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
-        self.gen = torch.Generator(device=device).manual_seed(int(seed))
 
     def _draw(self, kind: str, arg):
-        """Every random draw of training: ``"s0"`` -> (n_envs,) start arc
-        lengths in [0, s0_spread); ``"action"`` -> one categorical action
-        per row of the logits ``arg``; ``"perm"`` -> a permutation of
-        ``range(arg)``."""
-        cfg, g, dev = self.cfg, self.gen, self.device
+        """Every random draw of training, each from a fresh subkey
+        (``key, sub = split(key)``) in the JAX trainer's order: ``"s0"`` ->
+        (n_envs,) start arc lengths, uniform on [0, s0_spread); ``"action"``
+        -> one categorical action per row of the logits ``arg``; ``"perm"``
+        -> a permutation of ``range(arg)``."""
+        self.key, sub = prng.split(self.key)
         if kind == "s0":
-            return torch.rand(cfg.n_envs, generator=g, device=dev,
-                              dtype=self.offsets.dtype) * cfg.s0_spread
+            return prng.uniform(sub, (self.cfg.n_envs,),
+                                maxval=self.cfg.s0_spread)
         if kind == "action":
-            return torch.multinomial(torch.softmax(arg, dim=-1), 1,
-                                     generator=g)[:, 0]
+            return prng.categorical(sub, arg)
         if kind == "perm":
-            return torch.randperm(arg, generator=g, device=dev)
+            return prng.permutation(sub, arg)
         raise ValueError(f"unknown draw {kind!r}")
 
     def _reset(self) -> SimState:

@@ -34,8 +34,10 @@ from irbfn_tpu_torch.train.train_goal_mpc import PROBE_CHUNK, strided_rows
 from irbfn_tpu_torch.train.trainer import (cartesian_fullint_loss,
                                            create_trainer, make_train_step,
                                            mirror_cartesian_table,
+                                           key_seed,
                                            region_spec_from_table,
                                            train_epochs)
+from irbfn_tpu_torch.utils import prng
 from irbfn_tpu_torch.utils.args import add_device_args
 from irbfn_tpu_torch.utils.metrics import MetricLogger
 
@@ -132,13 +134,16 @@ def main(argv=None) -> dict:
     num_regions = int(np.prod(splits))
     activation_idx = list(range(7))
     input_scale = tuple(float(v) for v in data_scale(inputs))
+    # the JAX script's keys: rng, init_rng = split(PRNGKey(seed)); the net
+    # starts from init_rng and the batches follow rng's last word
+    batch_key, init_key = prng.split(prng.PRNGKey(args.seed))
     model = WCRBFNet(
         in_features=7, out_features=outputs.shape[1], num_kernels=args.num_k,
         basis_func=args.basis_function, num_regions=num_regions,
         lower_bounds=lower_bounds, upper_bounds=upper_bounds,
         dimension_ranges=dimension_ranges, activation_idx=activation_idx,
         delta=delta, input_scale=input_scale, head_mode=args.fit_mode,
-        device=device, seed=args.seed)
+        device=device, key=init_key)
     config = {
         "model_class": "WCRBFNet", "in_features": 7,
         "out_features": outputs.shape[1], "num_kernels": args.num_k,
@@ -184,8 +189,8 @@ def main(argv=None) -> dict:
     trainer, final_loss = train_epochs(
         trainer, make_train_step(cartesian_fullint_loss, dyn_params),
         inputs.astype(np.float32), outputs.astype(np.float32),
-        min(args.batch_size, inputs.shape[0]), args.train_epochs, args.seed,
-        log_fn=log_fn,
+        min(args.batch_size, inputs.shape[0]), args.train_epochs,
+        key_seed(batch_key), log_fn=log_fn,
         checkpoint_fn=lambda t, e: save_checkpoint(ckpt_dir, t.model,
                                                    step=e + 1))
     print(f"final mean loss {final_loss:.6f}; checkpoints at {ckpt_dir}")

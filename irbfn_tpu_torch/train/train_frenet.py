@@ -36,10 +36,11 @@ from irbfn_tpu_torch.train.trainer import (cluster_fullint_loss,
                                            create_trainer,
                                            frenet_fullint_loss,
                                            frenet_oneint_loss,
-                                           make_train_step,
+                                           key_seed, make_train_step,
                                            mirror_frenet_table,
                                            region_spec_from_table,
                                            train_epochs)
+from irbfn_tpu_torch.utils import prng
 from irbfn_tpu_torch.utils.args import (add_device_args, add_train_args,
                                         add_vehicle_args)
 from irbfn_tpu_torch.utils.metrics import MetricLogger
@@ -210,7 +211,10 @@ def main(argv=None) -> dict:
         "input_scale": list(input_scale),
         "head_mode": args.fit_mode if model_class == "WCRBFNet" else "shared",
     }
-    model = from_config(config, device=device, seed=args.seed,
+    # the JAX script's keys: rng, init_rng = split(PRNGKey(seed)); the net
+    # starts from init_rng and the batches follow rng's last word
+    batch_key, init_key = prng.split(prng.PRNGKey(args.seed))
+    model = from_config(config, device=device, key=init_key,
                         centers=centers if model_class == "WCRBFNet"
                         else None)
     save_config(os.path.join(args.out_dir, f"{args.run_name}.json"), config)
@@ -266,7 +270,8 @@ def main(argv=None) -> dict:
     trainer, final_loss = train_epochs(
         trainer, make_train_step(loss_fn, dyn_params),
         inputs.astype(np.float32), outputs.astype(np.float32), bs,
-        args.train_epochs, args.seed, extra=cluster_extra, log_fn=log_fn,
+        args.train_epochs, key_seed(batch_key), extra=cluster_extra,
+        log_fn=log_fn,
         checkpoint_fn=ckpt_fn)
     print(f"final mean loss {final_loss:.6f}; checkpoints at {ckpt_dir}")
     logger.close()

@@ -126,7 +126,7 @@ def train(args, inputs: np.ndarray, outputs: np.ndarray) -> dict:
         lower_bounds=lower_bounds, upper_bounds=upper_bounds,
         dimension_ranges=dimension_ranges, activation_idx=activation_idx,
         delta=delta, input_scale=input_scale, head_mode=args.fit_mode,
-        device=device)
+        device=device, seed=args.seed)
     config_path = os.path.join(args.out_dir, f"{args.run_name}.json")
     save_config(config_path, config)
     ckpt_dir = os.path.abspath(os.path.join(args.out_dir, args.run_name))

@@ -59,6 +59,7 @@ from irbfn_tpu_torch.dynamics.single_track import integrate_st
 from irbfn_tpu_torch.dynamics.spiral import integrate_endpoint_gl
 from irbfn_tpu_torch.models.wcrbf import overlapping_segments
 from irbfn_tpu_torch.sim.track import wrap_angle
+from irbfn_tpu_torch.utils import prng
 
 
 @torch.no_grad()
@@ -357,6 +358,13 @@ def _data_mean(values, mesh):
     return v[0], list(v[1:])
 
 
+def key_seed(key) -> int:
+    """The numpy seed the JAX package's ``train_epochs(..., rng=key)``
+    shuffles with: the key's last 32-bit word (``key_data(key)[-1]``); for
+    ``PRNGKey(s)`` it is ``s``."""
+    return int(prng.key_data(key)[-1])
+
+
 def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
                  batch_size: int, epochs: int, seed: int, extra=None,
                  log_fn=None, checkpoint_fn=None,
@@ -368,7 +376,7 @@ def train_epochs(trainer: Trainer, step_fn, inputs, outputs,
     they are; ``device=None`` is the model's device) and each batch is a
     gather there, driven by a host-drawn permutation
     (``np.random.default_rng(seed).permutation``, the JAX package's draws
-    for ``PRNGKey(seed)``). ``log_fn(step, metrics)`` fires every
+    for a key whose last word is ``seed``: ``key_seed``). ``log_fn(step, metrics)`` fires every
     ``log_every`` steps: turning a metric into a float waits for the device,
     so a step does not. ``checkpoint_fn(trainer, epoch)`` fires every
     ``checkpoint_every`` epochs and after the last. ``max_steps`` ends the

@@ -544,3 +544,23 @@ def test_train_clothoid_resume_and_step_cap(cut_lut, tmp_path):
     assert not torch.equal(res["model"].head_kernel.detach(), w0)
     assert res["param_l1"] == pytest.approx(first["param_l1"], rel=0.05)
     assert "finetune" in res["seconds"] and "fit" not in res["seconds"]
+
+
+@pytest.mark.parametrize("seed", [0, 123])
+def test_train_clothoid_shuffles_with_the_seed(seed, cut_lut, tmp_path,
+                                               monkeypatch):
+    """The JAX script hands ``train_epochs`` ``PRNGKey(seed)`` unsplit, so
+    its batches follow ``seed`` itself; so do the port's."""
+    _, _, t_path = cut_lut
+    real, seen = ttrain.train_epochs, []
+
+    def wrapper(*a, **kw):
+        seen.append(kw["seed"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ttrain, "train_epochs", wrapper)
+    ttrain.main(["--lut_path", t_path, "--run_name", "s", "--num_x", "2",
+                 "--num_k", "12", "--device", "cpu", "--out_dir",
+                 str(tmp_path), "--seed", str(seed), "--finetune_epochs",
+                 "1", "--finetune_steps", "1", "--batch", "64"])
+    assert seen == [seed]

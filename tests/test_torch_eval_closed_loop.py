@@ -10,12 +10,15 @@ End to end against the JAX scripts (``scripts/eval_closed_loop.py``,
 ``scripts/eval_adaptive.py``, run in f32 as deployed) on a tiny track
 bundle written in the test (the oval's raceline and its rasterized map):
 the grip-adaptive bank (two ``bank6_pr_mu*`` arms), the cartesian planner
-and the flagship on the bundle's map with ``--line_csv``, 8 lanes, no start
-noise, so both packages start alike. Completion and laps are equal; mean
-|ey|, |epsi| and speed agree to 1e-4 and the grip estimate to 1e-3 (f32
-rounding over 25 steps of feedback: measured up to 1.5e-5 and 1.9e-5). The
-bandit's draws are the port's own (numpy, not a JAX key), so its pulls are
-not compared; the fixed-arm baselines, which draw nothing, are (1e-4).
+and the flagship on the bundle's map with ``--line_csv``, 8 lanes, first
+with no start noise, then with the scripts' start noise and a retry
+(``--noise_scale 0.01 --max_retries 1``): the port draws JAX's noise from
+the same ``--seed`` (``utils/prng.py``). Completion and laps are equal;
+mean |ey|, |epsi| and speed agree to 1e-4 and the grip estimate to 1e-3
+(f32 rounding over 25 steps of feedback: measured up to 1.5e-5 and
+1.9e-5). The EXP3 bank draws JAX's arms: its pulls are equal and its
+rewards, like the fixed-arm baselines, agree to 1e-4, with and without
+start noise.
 """
 
 import pickle
@@ -241,6 +244,31 @@ def bundle(tmp_path_factory):
     return str(d)
 
 
+def _sweep_argv(case, bundle):
+    """(JAX argv, port argv) of a sweep case on the tiny bundle."""
+    if case == "adaptive_map":
+        argv = ["--planner", "irbfn_adaptive", "--arm_mus", "1.0", "0.8",
+                "--pace_lo", "0.2", "--speed_scale", "2.5", "--map_dir",
+                bundle]
+        jbank = [f"configs/bank6_pr_mu{m}.yaml:ckpts/bank6_pr_mu{m}"
+                 for m in ARM_MUS[::-1]]
+        tbank = [f"{A}bank6_pr_mu{m}.json:{A}bank6_pr_mu{m}.npz"
+                 for m in ARM_MUS[::-1]]
+        return argv + ["--bank"] + jbank, argv + ["--bank"] + tbank
+    if case == "cart":
+        argv = ["--planner", "irbfn_cart"]
+        return (argv + ["--config_f", "configs/cart_c1_pr.yaml", "--ckpt",
+                        "ckpts/cart_c1_pr"],
+                argv + ["--config_f", A + "cart_c1_pr.json", "--ckpt",
+                        A + "cart_c1_pr.npz"])
+    argv = ["--planner", "irbfn", "--map_dir", bundle, "--line_csv",
+            bundle + "/ovl_raceline.csv", "--car_radius", "0.15"]
+    return (argv + ["--config_f", "configs/frenet_wide_pr1.yaml", "--ckpt",
+                    "ckpts/frenet_wide_pr1"],
+            argv + ["--config_f", A + "frenet_wide_pr1.json", "--ckpt",
+                    A + "frenet_wide_pr1.npz"])
+
+
 def _compare(res, ref_pkl):
     with open(ref_pkl, "rb") as f:
         ref = pickle.load(f)
@@ -262,28 +290,7 @@ ARM_MUS = ("0.80", "1.00")
 @pytest.mark.parametrize("case", ["adaptive_map", "cart", "flagship_line"])
 def test_sweep_matches_the_jax_script(case, bundle, tmp_path):
     common = TINY + ["--out_name"]
-    if case == "adaptive_map":
-        argv = ["--planner", "irbfn_adaptive", "--arm_mus", "1.0", "0.8",
-                "--pace_lo", "0.2", "--speed_scale", "2.5", "--map_dir",
-                bundle]
-        jbank = [f"configs/bank6_pr_mu{m}.yaml:ckpts/bank6_pr_mu{m}"
-                 for m in ARM_MUS[::-1]]
-        tbank = [f"{A}bank6_pr_mu{m}.json:{A}bank6_pr_mu{m}.npz"
-                 for m in ARM_MUS[::-1]]
-        jargv, targv = argv + ["--bank"] + jbank, argv + ["--bank"] + tbank
-    elif case == "cart":
-        argv = ["--planner", "irbfn_cart"]
-        jargv = argv + ["--config_f", "configs/cart_c1_pr.yaml", "--ckpt",
-                        "ckpts/cart_c1_pr"]
-        targv = argv + ["--config_f", A + "cart_c1_pr.json", "--ckpt",
-                        A + "cart_c1_pr.npz"]
-    else:
-        argv = ["--planner", "irbfn", "--map_dir", bundle, "--line_csv",
-                bundle + "/ovl_raceline.csv", "--car_radius", "0.15"]
-        jargv = argv + ["--config_f", "configs/frenet_wide_pr1.yaml",
-                        "--ckpt", "ckpts/frenet_wide_pr1"]
-        targv = argv + ["--config_f", A + "frenet_wide_pr1.json", "--ckpt",
-                        A + "frenet_wide_pr1.npz"]
+    jargv, targv = _sweep_argv(case, bundle)
     _run_jax("eval_closed_loop", common + [str(tmp_path / "jax")] + jargv)
     res = ev.main(["--device", "cpu"] + common + [str(tmp_path / "port")]
                   + targv)
@@ -294,6 +301,30 @@ def test_sweep_matches_the_jax_script(case, bundle, tmp_path):
         assert (res["g_est"] != 0.5).any()  # the observer moved
     else:
         assert np.isnan(res["g_est"]).all()
+
+
+@pytest.mark.parametrize("case", ["adaptive_map", "flagship_line",
+                                  "cart_narrow"])
+def test_noisy_sweep_matches_the_jax_script(case, bundle, tmp_path, capsys):
+    """The scripts' start noise (0.01) and one retry, drawn by both
+    packages from ``--seed 0``: lane by lane the same results. In a
+    corridor 40 cm wide (``cart_narrow``) most lanes fail, and their
+    results come from the retry, which draws the second key of the
+    chain."""
+    common = [a for a in TINY] + ["--out_name"]
+    common[common.index("--noise_scale") + 1] = "0.01"
+    common[common.index("--max_retries") + 1] = "1"
+    jargv, targv = _sweep_argv(case.split("_")[0], bundle)
+    if case == "cart_narrow":
+        jargv, targv = (a + ["--half_width", "0.2"] for a in (jargv, targv))
+    _run_jax("eval_closed_loop", common + [str(tmp_path / "jax")] + jargv)
+    res = ev.main(["--device", "cpu"] + common + [str(tmp_path / "port")]
+                  + targv)
+    _compare(res, tmp_path / "jax.pkl")
+    if case == "cart_narrow":
+        out = capsys.readouterr().out
+        assert out.count("attempt 1: ") == 2  # both packages retried
+        assert 0 < res["completion"].mean() < 1
 
 
 def _adaptive_tables(tmp_path):
@@ -341,7 +372,38 @@ def test_eval_adaptive_matches_the_jax_script(mode, bundle, tmp_path):
     pulls, rewards = np.asarray(res["pulls"]), np.asarray(res["rewards"])
     assert pulls.shape == (2, 2) and ((pulls >= 0) & (pulls < 2)).all()
     assert ((rewards >= 0) & (rewards <= 1)).all()
+    # JAX's arms for the same seed, and their rewards
+    np.testing.assert_array_equal(pulls, ref["pulls"])
+    np.testing.assert_allclose(rewards, ref["rewards"], rtol=0,
+                               atol=TOL_LOOP)
     # a pulled arm's reward is that arm's fixed baseline (no start noise)
     fixed = np.asarray(res["fixed_rewards"])
     np.testing.assert_allclose(rewards, fixed[pulls, np.arange(2)],
                                rtol=0, atol=1e-6)
+
+
+def test_eval_adaptive_with_start_noise_matches_the_jax_script(bundle,
+                                                               tmp_path):
+    """The learned bank with the script's default start noise (0.01): the
+    same noise every round, the same pulls, rewards to 1e-4."""
+    import json
+
+    from irbfn_tpu_torch.sim import eval_adaptive
+
+    common = ["--arm_mus", "0.8", "1.0", "--map_dir", bundle, "--mus",
+              "0.6", "1.0", "--css", "5.0", "--episodes", "3", "--n_steps",
+              "20", "--baseline_rounds", "1", "--json_out"]
+    jarms = ["--nets"] + [f"configs/bank6_pr_mu{m}.yaml:"
+                          f"ckpts/bank6_pr_mu{m}" for m in ARM_MUS]
+    tarms = ["--nets"] + [f"{A}bank6_pr_mu{m}.json:{A}bank6_pr_mu{m}.npz"
+                          for m in ARM_MUS]
+    _run_jax("eval_adaptive", common + [str(tmp_path / "j.json")] + jarms)
+    res = eval_adaptive.main(["--device", "cpu"] + common
+                             + [str(tmp_path / "t.json")] + tarms)
+    with open(tmp_path / "j.json") as f:
+        ref = json.load(f)
+    np.testing.assert_allclose(res["fixed_rewards"], ref["fixed_rewards"],
+                               rtol=0, atol=TOL_LOOP)
+    np.testing.assert_array_equal(res["pulls"], ref["pulls"])
+    np.testing.assert_allclose(res["rewards"], ref["rewards"], rtol=0,
+                               atol=TOL_LOOP)

@@ -17,6 +17,12 @@ JAX package.
   parameter tensor to 1e-4 relative (its norm) and the metrics to 1e-4; at
   ``train_ppo``'s widths (64 x 64, 7 actions, 4 x 4) to 1e-3
   (``TOL_UPDATE_FULL``).
+- The same update with no replay: ``PPOTrainer(seed=0)`` draws from the JAX
+  trainer's key chain (``utils/prng.py``). Its initial parameters equal
+  the golden's ``p0`` bit for bit, every one of its draws equals the JAX
+  side's (the uniforms bit for bit; the permutations, and the categorical
+  actions on every lane with the logits the port computes), and ``p1`` and
+  the metrics are held as above.
 """
 
 import jax
@@ -225,3 +231,52 @@ def test_torch_ppo_trains_and_makes_progress(tmp_path):
                for h in hist)
     assert hist[-1]["mean_progress"] > hist[0]["mean_progress"] + 1.0
     assert (tmp_path / "curve.json").exists()
+
+
+@pytest.mark.parametrize("prefix,cfg,n_lattice,tol", [
+    ("small_", dict(n_envs=16, n_steps=16, n_epochs=2, n_minibatch=2), 5,
+     TOL_UPDATE),
+    ("", {}, 7, TOL_UPDATE_FULL)])
+def test_torch_ppo_update_matches_jax_with_its_own_draws(prefix, cfg,
+                                                         n_lattice, tol):
+    with np.load(GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    p0, p1 = (unflatten_tree({k[len(prefix) + 3:]: v
+                              for k, v in golden.items()
+                              if k.startswith(f"{prefix}p{i}_")})
+              for i in (0, 1))
+    trainer = PP.PPOTrainer(train_ppo.make_env("cpu"), PP.PPOConfig(**cfg),
+                            n_lattice=n_lattice, seed=0)
+    for i, layer in enumerate(trainer.net.dense_layers()):
+        want = p0["params"][f"Dense_{i}"]
+        np.testing.assert_array_equal(layer.weight.detach().T.numpy(),
+                                      want["kernel"])
+        np.testing.assert_array_equal(layer.bias.detach().numpy(),
+                                      want["bias"])
+    drawn, own = [], trainer._draw
+
+    def recording(kind, arg):
+        v = own(kind, arg)
+        drawn.append((DRAW[kind], v))
+        return v
+
+    trainer._draw = recording
+    hist = trainer.train(n_updates=1)
+    kinds = list(golden[prefix + "draw_kinds"])
+    assert [k for k, _ in drawn] == kinds
+    for i, (kind, v) in enumerate(drawn):
+        want = golden[f"{prefix}draw_{i}"]
+        if kind == "uniform":
+            np.testing.assert_array_equal(v.numpy().view(np.int32),
+                                          want.view(np.int32))
+        else:
+            np.testing.assert_array_equal(v.numpy(), want, err_msg=str(i))
+    for i, layer in enumerate(trainer.net.dense_layers()):
+        want = p1["params"][f"Dense_{i}"]
+        for got, ref in ((layer.weight.detach().T, want["kernel"]),
+                         (layer.bias.detach(), want["bias"])):
+            err = np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref)
+            assert err <= tol, (i, ref.shape, err)
+    for k, v in hist[0].items():
+        np.testing.assert_allclose(v, golden[f"{prefix}metric_{k}"],
+                                   rtol=tol, atol=tol, err_msg=k)

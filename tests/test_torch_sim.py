@@ -25,6 +25,7 @@ from irbfn_tpu_torch.sim import TrackEnv, deviation_metrics
 from irbfn_tpu_torch.sim import safety as tsafety
 from irbfn_tpu_torch.sim import track as ttrack
 from irbfn_tpu_torch.sim.env import Observation, StepRecord
+from irbfn_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-12, atol=1e-12)
@@ -132,10 +133,16 @@ def test_torch_env_reset(tracks):
     for a, b in zip(st, sj):
         _close(a, b)
     assert st.laps.dtype == torch.int32 and st.done.dtype == torch.bool
-    gen = TrackEnv(tt, pt).reset(batch_shape=(3,), noise_scale=0.01,
-                                 noise=torch.Generator().manual_seed(0))
-    assert gen.x.shape == (3, 7) and not torch.equal(gen.x[:, 0],
-                                                     st.x[:, 0] * 0)
+    # a key: JAX's noise_scale * normal(key, (B, 3)) in f32 (utils/prng.py)
+    key = prng.PRNGKey(0)
+    drawn = TrackEnv(tt, pt).reset(s0=0.0, speed0=1.0, batch_shape=(3,),
+                                   noise_scale=0.01, key=key)
+    clean = TrackEnv(tt, pt).reset(s0=0.0, speed0=1.0, batch_shape=(3,))
+    dn = (0.01 * prng.normal(key, (3, 3))).to(clean.x.dtype)
+    for col, i in ((0, 0), (1, 1), (4, 2)):
+        assert torch.equal(drawn.x[:, col], clean.x[:, col] + dn[:, i])
+    assert drawn.x.shape == (3, 7) and not torch.equal(drawn.x[:, 0],
+                                                       st.x[:, 0] * 0)
 
 
 def test_torch_env_step_done_laps_and_corridor(tracks):

@@ -17,8 +17,8 @@ learned bank (``bank_pr_mu{0.60,0.80,1.00}``).
   (``tests/test_torch_planner.py``'s f64 tolerance).
 - The three bank arms through ``eval_adaptive --nets`` at 20 steps on the
   bundle written back from ``bank_pr_golden.npz`` match the JAX script's
-  run on the same files, as ``tests/test_torch_eval_closed_loop.py`` holds
-  the ``bank6`` arms.
+  run on the same files, pulls included, as
+  ``tests/test_torch_eval_closed_loop.py`` holds the ``bank6`` arms.
 - The plain RBF version at K = 499 on the kernel's padded layout (K
   rounded up to 512: zero centers, zero width, zero head weight, so a
   padded column's basis is phi(0) = 1 times a zero weight) gives flax's
@@ -198,6 +198,10 @@ def test_bank_pr_through_eval_adaptive_matches_the_jax_script(tmp_path):
                                rtol=0, atol=TOL_LOOP)
     pulls, rewards = np.asarray(res["pulls"]), np.asarray(res["rewards"])
     assert pulls.shape == (2, 2) and ((pulls >= 0) & (pulls < 3)).all()
+    # the JAX script's arms for the same seed (utils/prng.py)
+    np.testing.assert_array_equal(pulls, ref["pulls"])
+    np.testing.assert_allclose(rewards, ref["rewards"], rtol=0,
+                               atol=TOL_LOOP)
     # a pulled arm's reward is that arm's fixed baseline (no start noise)
     fixed = np.asarray(res["fixed_rewards"])
     np.testing.assert_allclose(rewards, fixed[pulls, np.arange(2)],
