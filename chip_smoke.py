@@ -646,18 +646,36 @@ def phase_build():
         check(not any(spilled), f"{name} spills registers: {res.log}")
 
 
-def reset_launches():
-    from irbfn_tpu_torch.ops import admm_solve, wcrbf_forward
+# the port's counters when ``reset_launches`` last ran
+_LAUNCHES_FROM = {}
 
-    admm_solve.launches = 0
-    wcrbf_forward.launches = 0
+
+def _launch_counts() -> dict:
+    from irbfn_tpu_torch.utils import spans
+
+    c = spans.counters()
+    return {"rbf_forward": c.get("ops.rbf.forwards", 0),
+            "admm_solve": c.get("ops.admm.family", 0)
+            + c.get("ops.admm.lane", 0)}
+
+
+def reset_launches():
+    _LAUNCHES_FROM.clear()
+    _LAUNCHES_FROM.update(_launch_counts())
 
 
 def read_launches() -> dict:
-    from irbfn_tpu_torch.ops import admm_solve, wcrbf_forward
+    """The kernels' launches (the RBF kernel's forwards) since
+    ``reset_launches``."""
+    now = _launch_counts()
+    return {k: v - _LAUNCHES_FROM.get(k, 0) for k, v in now.items()}
 
-    return {"rbf_forward": wcrbf_forward.launches,
-            "admm_solve": admm_solve.launches}
+
+def newton_iterations() -> int:
+    """The NMPC solver's Newton iterations on this process so far."""
+    from irbfn_tpu_torch.utils import spans
+
+    return spans.counters().get("nmpc.newton_iterations", 0)
 
 
 def _flagship(device):
@@ -1678,12 +1696,13 @@ def phase_nmpc_against_jax(device, g):
     cfg = nmpc.NMPCConfig()
     n = len(g["rows"])
     rows = np.concatenate([g["rows"], g["oracle_rows"]])
+    iters0 = newton_iterations()
     t0 = time.perf_counter()
     sol = nmpc.solve_lattice_point(torch.as_tensor(rows, device=device),
                                    params, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    iters = nmpc.LAST_SOLVE_STATS["newton_iterations"]
+    iters = newton_iterations() - iters0
     check(all(bool(torch.isfinite(getattr(sol, k)[sol.feasible]).all())
               for k in ("accel", "steer_vel", "states")),
           "non-finite feasible NMPC solutions")
@@ -1790,11 +1809,11 @@ def phase_nmpc_f32(device):
 
     def solve(name, r, p, c):
         torch.cuda.synchronize()
+        iters0 = newton_iterations()
         t0 = time.perf_counter()
         sol = nmpc.solve_lattice_point(r, p, c)
         torch.cuda.synchronize()
-        t[name] = (time.perf_counter() - t0,
-                   nmpc.LAST_SOLVE_STATS["newton_iterations"])
+        t[name] = (time.perf_counter() - t0, newton_iterations() - iters0)
         return sol
 
     s32 = solve("f32", rows, p32, cfg)
@@ -4236,14 +4255,16 @@ def phase_ceilings(device):
     from irbfn_tpu_torch.ops.fma_ceiling import (STEPS, fma_chain,
                                                  fma_chain_reference)
     from irbfn_tpu_torch.parallel.gen_nmpc_table_frenet import wide_rows
-    from irbfn_tpu_torch.solvers import NMPCConfig, nmpc, solve_lattice_point
+    from irbfn_tpu_torch.solvers import NMPCConfig, solve_lattice_point
     from irbfn_tpu_torch.utils import profiling as prof
+    from irbfn_tpu_torch.utils import spans
 
     x = torch.arange(1 << 22, dtype=torch.float32, device=device) * 1e-9
-    fma_chain.launches = 0
+    fma_launches = spans.counters().get("ops.fma.launches", 0)
     got = fma_chain(x)
     torch.cuda.synchronize()
-    check(fma_chain.launches == 1, "the FMA probe did not launch")
+    check(spans.counters().get("ops.fma.launches", 0) == fma_launches + 1,
+          "the FMA probe did not launch")
     ref = fma_chain_reference(x)
     e_fma = _max_err(got, ref) / float(ref.abs().max())
     check(e_fma <= TOL_FMA_REL, f"FMA probe vs its plain chain: rel "
@@ -4254,10 +4275,11 @@ def phase_ceilings(device):
     rows = torch.as_tensor(wide_rows(CEILING_NMPC_ROWS, 0), device=device)
     params = fullscale_params(dtype=torch.float32, device=device)
     cfg = NMPCConfig(**CEILING_NMPC)
+    iters0 = newton_iterations()
     t0 = wait_clock(device)
     solve_lattice_point(rows, params, cfg)
     wall = wait_clock(device) - t0
-    iters = nmpc.LAST_SOLVE_STATS["newton_iterations"]
+    iters = newton_iterations() - iters0
     ops_iter = prof.newton_iteration_ops(rows, params, cfg)
     small = rows[:256]
     n_card = prof.newton_iteration_ops(small, params, cfg)

@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from irbfn_tpu_torch.utils import spans
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,4 +66,5 @@ def build(name: str, defines: tuple = ()) -> BuildResult:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n"
                            f"{proc.stderr}")
     os.replace(tmp, out)
+    spans.count("ops.nvcc_s", seconds)
     return BuildResult(out, seconds, proc.stdout + proc.stderr)

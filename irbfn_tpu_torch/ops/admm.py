@@ -18,7 +18,8 @@ dispatches on the device of ``q``:
   against;
 - any other device raises.
 
-``admm_solve.launches`` counts the kernel's launches.
+Each launch is the span ``ops.admm`` and counts ``ops.admm.family`` or
+``ops.admm.lane`` by variant (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import ctypes
 import functools
 
 import torch
+
+from irbfn_tpu_torch.utils import spans
 
 HORIZONS = (8,)  # the MPC horizons T the kernel is compiled for
 VARIANTS = ("family", "lane")  # the kernel's ``variant`` argument, by index
@@ -95,8 +98,9 @@ def admm_solve_reference(q, A, kinv, lo, hi, rho, iters: int = 600,
 def _library() -> ctypes.CDLL:
     from irbfn_tpu_torch.ops._build import build
 
-    res = build("admm_solve")
-    lib = ctypes.CDLL(str(res.path))
+    with spans.span("ops.library", label="admm_solve"):
+        res = build("admm_solve")
+        lib = ctypes.CDLL(str(res.path))
     fn = lib.admm_solve_f32
     fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
@@ -149,7 +153,8 @@ def _launch(q, A, kinv, lo, hi, rho, iters, sigma, alpha):
     if F == 0 or G == 0:
         return x, r_prim, r_dual
     lib = _library()
-    with torch.cuda.device(q.device):
+    with spans.span("ops.admm", label=variant), \
+            torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.admm_solve_f32(
             *(t.data_ptr() for t in tensors), x.data_ptr(), r_prim.data_ptr(),
@@ -158,7 +163,7 @@ def _launch(q, A, kinv, lo, hi, rho, iters, sigma, alpha):
     if rc != 0:
         raise RuntimeError(f"admm_solve kernel launch failed: CUDA error "
                            f"{rc}")
-    admm_solve.launches += 1
+    spans.count(f"ops.admm.{variant}")
     return x, r_prim, r_dual
 
 
@@ -178,6 +183,3 @@ def admm_solve(q, A, kinv, lo, hi, rho, iters: int = 600,
                                     alpha)
     raise ValueError(f"admm_solve runs on CUDA or CPU tensors, not "
                      f"{q.device.type}")
-
-
-admm_solve.launches = 0

@@ -10,9 +10,9 @@ A measuring probe, not the counterpart of a TPU kernel (so it is not in
 - a CPU tensor takes the plain version, ``fma_chain_reference``: the same
   chain as ``2 * STEPS * repeats`` tensor operations.
 
-``fma_chain.launches`` counts the kernel's launches. The plain chain rounds
-twice a step where the kernel's FMA rounds once: the two agree to ~1e-6
-relative after 64 steps, not bit for bit.
+The counter ``ops.fma.launches`` (``utils/spans.py``) counts the kernel's
+launches. The plain chain rounds twice a step where the kernel's FMA rounds
+once: the two agree to ~1e-6 relative after 64 steps, not bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import ctypes
 import functools
 
 import torch
+
+from irbfn_tpu_torch.utils import spans
 
 STEPS = 64  # FMAs of one chain (the kernel's kSteps)
 A, B = 1.000001, 1e-6  # the JAX package's chain constants
@@ -39,8 +41,9 @@ def fma_chain_reference(x: torch.Tensor, repeats: int = 1) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     from irbfn_tpu_torch.ops._build import build
 
-    res = build("fma_ceiling")
-    lib = ctypes.CDLL(str(res.path))
+    with spans.span("ops.library", label="fma_ceiling"):
+        res = build("fma_ceiling")
+        lib = ctypes.CDLL(str(res.path))
     lib.fma_chain_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_longlong, ctypes.c_int,
                                   ctypes.c_float, ctypes.c_float,
@@ -78,8 +81,5 @@ def fma_chain(x: torch.Tensor, repeats: int = 1) -> torch.Tensor:
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fma_chain kernel launch failed: CUDA error {rc}")
-    fma_chain.launches += 1
+    spans.count("ops.fma.launches")
     return y
-
-
-fma_chain.launches = 0

@@ -10,9 +10,10 @@ the device of its input:
   kernel against;
 - any other device raises.
 
-``wcrbf_forward.launches`` counts the forwards that went through the kernel
-(each is two launches: the region groups' partial sums, then their ordered
-sum): a run can show that its main path went through the kernel.
+The counter ``ops.rbf.forwards`` (``utils/spans.py``) counts the forwards
+that went through the kernel (each is two launches: the region groups'
+partial sums, then their ordered sum): a run can show that its main path
+went through the kernel.
 
 ``partial=True`` is the forward of one shard of the regions, for a net whose
 region axis is split over the ranks of an expert group
@@ -30,6 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from irbfn_tpu_torch.models.kernels import BASIS_FUNCTIONS
+from irbfn_tpu_torch.utils import spans
 
 # the kernel's compile-time limits (csrc/rbf_forward.cu)
 MAX_FEATURES = 16
@@ -181,8 +183,9 @@ def wcrbf_forward_reference(x: torch.Tensor, ops: RBFOperands,
 def _library() -> ctypes.CDLL:
     from irbfn_tpu_torch.ops._build import build
 
-    res = build("rbf_forward")
-    lib = ctypes.CDLL(str(res.path))
+    with spans.span("ops.library", label="rbf_forward"):
+        res = build("rbf_forward")
+        lib = ctypes.CDLL(str(res.path))
     for fn in (lib.rbf_forward_f32, lib.rbf_forward_partial_f32):
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
@@ -354,7 +357,7 @@ def _launch(x: torch.Tensor, ops: RBFOperands,
     if rc != 0:
         raise RuntimeError(f"rbf_forward kernel launch failed: CUDA error "
                            f"{rc}")
-    wcrbf_forward.launches += 1
+    spans.count("ops.rbf.forwards")
     return out
 
 
@@ -374,9 +377,6 @@ def wcrbf_forward(x: torch.Tensor, ops: RBFOperands,
         return wcrbf_forward_reference(x, ops, partial)
     raise ValueError(f"wcrbf_forward runs on CUDA or CPU tensors, not "
                      f"{x.device.type}")
-
-
-wcrbf_forward.launches = 0
 
 
 def finish_partial(part: torch.Tensor, ops: RBFOperands) -> torch.Tensor:

@@ -7,8 +7,11 @@ rows ('ij' order, so the table layout matches the reference's), and
 (``parallel/mesh.py``) and ``all_gather``s the results, so that every rank
 returns the whole table. On the card, chunk i's results are copied back
 into pinned host buffers while chunk i+1 is already queued, so the device
-does not wait for those copies. ``controls_block`` flattens a table's
-control sequences into the layout the nets are trained on.
+does not wait for those copies. Each family call, and each chunk's
+staging, solve, gather, copy back and drain, is a span of
+``utils/spans.py`` (``lattice.*``), with its rows and bytes counted there.
+``controls_block`` flattens a table's control sequences into the layout the
+nets are trained on.
 ``TableSolution`` is what a table keeps of an NMPC solution, and
 ``frenet_table`` assembles the on-disk table with its -999 sentinel rows.
 """
@@ -23,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from irbfn_tpu_torch._device import resolve_device
+from irbfn_tpu_torch.utils import spans
 
 # chunks whose results may still be on their way to the host when the next
 # chunk is queued
@@ -75,6 +79,9 @@ def _to_host(t: torch.Tensor):
     the event None when ``t`` is already on the host."""
     if t.device.type == "cpu":
         return t, None
+    nbytes = t.numel() * t.element_size()
+    spans.count("lattice.d2h_bytes", nbytes)
+    spans.count("lattice.pinned_bytes", nbytes)
     buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     buf.copy_(t, non_blocking=True)
     event = torch.cuda.Event()
@@ -91,35 +98,54 @@ class _HostPipeline:
         self.outs, self.inflight = [], []
         self.progress_fn = progress_fn
 
-    def put(self, result: dict, done: int):
-        self.inflight.append(({k: _to_host(v) for k, v in result.items()},
-                              done))
+    def put(self, result: dict, done: int, chunk: int):
+        with spans.span("lattice.put", chunk):
+            self.inflight.append(
+                ({k: _to_host(v) for k, v in result.items()}, done, chunk))
         if len(self.inflight) > PIPELINE_DEPTH:
             self._drain_one()
 
     def _drain_one(self):
-        result, done = self.inflight.pop(0)
-        for _, event in result.values():
-            if event is not None:
-                event.synchronize()
-        self.outs.append({k: buf.numpy() for k, (buf, _) in result.items()})
+        result, done, chunk = self.inflight.pop(0)
+        with spans.span("lattice.drain", chunk):
+            for _, event in result.values():
+                if event is not None:
+                    event.synchronize()
+            self.outs.append({k: buf.numpy()
+                              for k, (buf, _) in result.items()})
         if self.progress_fn is not None:
             self.progress_fn(done)
 
     def result(self, name: str) -> dict:
-        while self.inflight:
-            self._drain_one()
-        if not self.outs:
-            raise ValueError(f"{name} needs at least one row")
-        return {k: np.concatenate([o[k] for o in self.outs])
-                for k in self.outs[0]}
+        with spans.span("lattice.assemble"):
+            while self.inflight:
+                self._drain_one()
+            if not self.outs:
+                raise ValueError(f"{name} needs at least one row")
+            return {k: np.concatenate([o[k] for o in self.outs])
+                    for k in self.outs[0]}
 
 
-def _to_device(rows: np.ndarray, device) -> torch.Tensor:
-    chunk = torch.from_numpy(np.ascontiguousarray(rows))
-    if device.type == "cuda":
-        return chunk.pin_memory().to(device, non_blocking=True)
-    return chunk.to(device)
+def _to_device(rows: np.ndarray, device, chunk: int,
+               real: int) -> torch.Tensor:
+    """Chunk ``chunk``'s rows on ``device``, through pinned memory on the
+    card; ``real`` of them are the lattice's (the rest stand in for an
+    empty block)."""
+    with spans.span("lattice.stage", chunk):
+        spans.count("lattice.rows", real)
+        t = torch.from_numpy(np.ascontiguousarray(rows))
+        if device.type != "cuda":
+            return t.to(device)
+        nbytes = t.numel() * t.element_size()
+        spans.count("lattice.pinned_bytes", nbytes)
+        spans.count("lattice.h2d_bytes", nbytes)
+        return t.pin_memory().to(device, non_blocking=True)
+
+
+def _solve_chunk(solve_fn, rows: torch.Tensor, args, chunk: int):
+    with spans.span("lattice.solve", chunk):
+        spans.count("lattice.chunks")
+        return solve_fn(rows, *args)
 
 
 def solve_lattice(solve_fn: Callable, rows: np.ndarray,
@@ -139,11 +165,15 @@ def solve_lattice(solve_fn: Callable, rows: np.ndarray,
         dict of numpy arrays with leading dim N.
     """
     device = resolve_device(device)
-    pipe = _HostPipeline()
-    for start in range(0, rows.shape[0], batch_per_device):
-        chunk = _to_device(rows[start:start + batch_per_device], device)
-        pipe.put(solve_fn(chunk, *args), start + chunk.shape[0])
-    return pipe.result("solve_lattice")
+    with spans.span(spans.FAMILY):
+        spans.count("lattice.families")
+        pipe = _HostPipeline()
+        for c, start in enumerate(range(0, rows.shape[0], batch_per_device)):
+            part = rows[start:start + batch_per_device]
+            chunk = _to_device(part, device, c, part.shape[0])
+            pipe.put(_solve_chunk(solve_fn, chunk, args, c),
+                     start + part.shape[0], c)
+        return pipe.result("solve_lattice")
 
 
 def _gather_rows(t: torch.Tensor, sizes, group) -> torch.Tensor:
@@ -156,6 +186,8 @@ def _gather_rows(t: torch.Tensor, sizes, group) -> torch.Tensor:
         t = torch.cat([t, t[-1:].expand((n - t.shape[0],) + t.shape[1:])])
     send = (t.to(torch.uint8) if t.dtype == torch.bool else t).contiguous()
     blocks = [torch.empty_like(send) for _ in sizes]
+    spans.count("lattice.gather_bytes",
+                len(sizes) * send.numel() * send.element_size())
     dist.all_gather(blocks, send, group=group)
     out = torch.cat([b[:m] for b, m in zip(blocks, sizes)])
     return out.to(torch.bool) if t.dtype == torch.bool else out
@@ -208,22 +240,29 @@ def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
         print(f"  lattice progress {done:,}/{n_total:,} ({rate:,.0f} rows/s)",
               flush=True)
 
-    pipe = _HostPipeline(report if progress and mesh.rank == 0 else None)
-    bare = False
-    for start in range(0, n_total, D * bpd):
-        sizes = [min(max(n_total - start - j * bpd, 0), bpd)
-                 for j in range(D)]
-        mine = rows[start + i * bpd:start + i * bpd + sizes[i]]
-        result = solve_fn(_to_device(mine if sizes[i] else rows[-1:],
-                                     device), *args)
-        bare = torch.is_tensor(result)
-        if bare:
-            result = {"": result}
-        if group is not None:
-            result = {k: _gather_rows(v, sizes, group)
-                      for k, v in result.items()}
-        pipe.put(result, start + sum(sizes))
-    out = pipe.result("solve_lattice_sharded")
+    with spans.span(spans.FAMILY):
+        spans.count("lattice.families")
+        pipe = _HostPipeline(report if progress and mesh.rank == 0 else None)
+        bare = False
+        for c, start in enumerate(range(0, n_total, D * bpd)):
+            sizes = [min(max(n_total - start - j * bpd, 0), bpd)
+                     for j in range(D)]
+            mine = rows[start + i * bpd:start + i * bpd + sizes[i]]
+            result = _solve_chunk(solve_fn, _to_device(
+                mine if sizes[i] else rows[-1:], device, c, sizes[i]), args, c)
+            bare = torch.is_tensor(result)
+            if bare:
+                result = {"": result}
+            if group is not None:
+                with spans.span("lattice.gather", c):
+                    # the rows this rank sends that are not its own: the
+                    # padding to the largest block (and an empty block's
+                    # stand-in row)
+                    spans.count("lattice.pad_rows", sizes[0] - sizes[i])
+                    result = {k: _gather_rows(v, sizes, group)
+                              for k, v in result.items()}
+            pipe.put(result, start + sum(sizes), c)
+        out = pipe.result("solve_lattice_sharded")
     return out[""] if bare else out
 
 

@@ -12,6 +12,11 @@ y_goal, t_goal, v_goal), ``outputs`` (N, 2) = (speed, steer) with -999
 where a row did not converge, ``valid`` = the convergence mask, plus the
 grid metadata ``lows``, ``highs``, ``nums`` and ``dims``.
 
+The run ends with what the lattice pipeline moved on this rank, from the
+counters of ``utils/spans.py``: families, real rows, chunks, the bytes
+staged through pinned memory and copied each way, and on a mesh the padding
+rows and the bytes the gathers received.
+
 Under ``torchrun`` (``WORLD_SIZE`` set) every process is one rank of a
 process group read from the environment, one card each: the lattice splits
 over the ranks (``datagen.py:solve_lattice_sharded``), every rank gathers
@@ -35,6 +40,7 @@ from irbfn_tpu_torch.parallel.launch import from_environment
 from irbfn_tpu_torch.parallel.mesh import make_mesh
 from irbfn_tpu_torch.solvers.goal_mpc import (GoalMPCConfig,
                                               solve_goal_lattice_sharded)
+from irbfn_tpu_torch.utils import spans
 
 DIMS = ("v_car", "x_goal", "y_goal", "t_goal", "v_goal")
 # the reference grid, arange semantics (inclusive endpoint via +step, the
@@ -77,7 +83,8 @@ def grid_from_args(args) -> list:
 def solve_table(args) -> dict:
     """Solve the lattice the flags describe. Returns the grid, the raw goal
     block (G, 4) in (x, y, t, v) order, the per-family columns speed,
-    steer and valid (n_v, G), and the seconds the solves took."""
+    steer and valid (n_v, G), the seconds the solves took and what the
+    pipeline moved (``spans.since`` of the ``lattice.`` counters)."""
     grid = grid_from_args(args)
     v_vals = grid[0].values()
     goals_raw = build_lattice(grid[1:], dtype=np.float32)  # (G, 4) x,y,t,v
@@ -93,6 +100,7 @@ def solve_table(args) -> dict:
     speed = np.empty((len(v_vals), G), np.float32)
     steer = np.empty((len(v_vals), G), np.float32)
     valid = np.empty((len(v_vals), G), bool)
+    before = spans.counters()
     t0 = time.perf_counter()
     for vi, v in enumerate(v_vals):
         v = float(np.asarray(v, goals.dtype))
@@ -109,8 +117,11 @@ def solve_table(args) -> dict:
     seconds = time.perf_counter() - t0
     print(f"{n_total / seconds:,.0f} QP solves/s overall; "
           f"{100 * valid.mean():.4f}% converged", flush=True)
+    moved = spans.since(before, "lattice.")
+    print("pipeline on this rank: " + ", ".join(
+        f"{k[len('lattice.'):]} {v:,}" for k, v in moved.items()), flush=True)
     return dict(grid=grid, goals_raw=goals_raw, speed=speed, steer=steer,
-                valid=valid, seconds=seconds)
+                valid=valid, seconds=seconds, pipeline=moved)
 
 
 def table_arrays(res: dict) -> dict:

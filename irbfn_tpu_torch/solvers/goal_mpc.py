@@ -36,6 +36,7 @@ import torch
 from irbfn_tpu_torch._device import resolve_device
 from irbfn_tpu_torch.ops.admm import admm_solve
 from irbfn_tpu_torch.solvers.qp import _mv
+from irbfn_tpu_torch.utils import spans
 
 
 class GoalMPCConfig(NamedTuple):
@@ -226,7 +227,8 @@ def _family_operands(v_car, goals, cfg, sigma):
 
 def _solve_families(v, goals, cfg, iters, sigma, tol) -> GoalMPCSolution:
     """v (F,), goals (F, G, 4) -> a solution of shape (F, G)."""
-    fam, rho, kinv, q = _family_operands(v, goals, cfg, sigma)
+    with spans.span("goal.operands"):
+        fam, rho, kinv, q = _family_operands(v, goals, cfg, sigma)
     x, r_prim, r_dual = admm_solve(q.contiguous(), fam.A_con.contiguous(),
                                    kinv.contiguous(), fam.lo.contiguous(),
                                    fam.hi.contiguous(), rho.contiguous(),

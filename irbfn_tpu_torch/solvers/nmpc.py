@@ -45,6 +45,7 @@ from irbfn_tpu_torch._device import resolve_device
 from irbfn_tpu_torch.dynamics.frenet import frenet_deriv
 from irbfn_tpu_torch.dynamics.params import VehicleParams
 from irbfn_tpu_torch.dynamics.single_track import st_mixed_deriv
+from irbfn_tpu_torch.utils import spans
 
 
 @dataclass(frozen=True)
@@ -474,10 +475,6 @@ def _line_search(u, step, obj_cands, lo_flat, hi_flat, cfg: NMPCConfig):
     return c_best, xs_best, f_best
 
 
-# the counters of the last solve on this process, read by the profiler
-LAST_SOLVE_STATS = {"newton_iterations": 0, "inner_solves": 0}
-
-
 def _newton_iteration(u, xs, mu, done, lam, rho, prob, cfg: NMPCConfig):
     """One damped projected semi-smooth Newton pass at fixed multipliers
     over the carried ``(u, xs, mu, done)``: iterate ``(B, n)``, its rollout,
@@ -551,12 +548,11 @@ def _inner(u, lam, rho, prob, cfg: NMPCConfig):
     B = u.shape[0]
     mu = torch.full((B,), 1e-4, dtype=u.dtype, device=u.device)
     done = torch.zeros(B, dtype=torch.bool, device=u.device)
-    LAST_SOLVE_STATS["inner_solves"] += 1
     xs = _rollout_rk4(x0, _controls(u, cfg), curv, p, cfg)
     for _ in range(cfg.gn_iters):
         if bool(done.all()):
             break
-        LAST_SOLVE_STATS["newton_iterations"] += 1
+        spans.count("nmpc.newton_iterations")
         u, xs, mu, done = _newton_iteration(u, xs, mu, done, lam, rho, prob,
                                             cfg)
     return u, xs
@@ -609,7 +605,6 @@ def _solve_rows(x0, goal, curv, u_init, p: VehicleParams, cfg: NMPCConfig):
     lo, hi = _control_bounds(cfg, dtype, device)
     lo_flat, hi_flat = lo.repeat(T), hi.repeat(T)
     prob = (x0, goal, curv, p, lo_flat, hi_flat)
-    LAST_SOLVE_STATS.update(newton_iterations=0, inner_solves=0)
 
     lam = torch.zeros((B, 4 * (T + 1)), dtype=dtype, device=device)
     rho = torch.tensor(cfg.penalty0, dtype=dtype, device=device)

@@ -11,9 +11,11 @@ planner in solver and in net mode with ``goal_mpc_pr``):
   time per step, the device's idle share and the kernel launches per step;
 
 for one reference lattice family (2,642,368 goals, 600 sweeps, the table
-generator's chunks) the wall time, the device time and the ADMM kernel's
-share of it; and for the fit-and-train path on that family's table
-(``goal_mpc_pr``'s shape: R=16, K=512, F=5, O=2):
+generator's chunks) the wall time, the device time, the ADMM kernel's
+share of it and the host's self time in each of the port's spans
+(``utils/spans.py``, turned on for that family); and for the fit-and-train
+path on that family's table (``goal_mpc_pr``'s shape: R=16, K=512, F=5,
+O=2):
 
 - a train step of the L1 loss at batch 8192 through ``train_epochs``: ms
   per step, device ms per step, idle share, launches per step, and the
@@ -87,6 +89,7 @@ from irbfn_tpu_torch.models.fit import device_table, fit_per_region
 from irbfn_tpu_torch.train import (create_trainer, input_bounds_from_config,
                                    load_model, make_train_step, pred_l1_loss,
                                    train_epochs)
+from irbfn_tpu_torch.utils import spans
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
@@ -285,20 +288,26 @@ def trajgen_paths(device, config_f=None, ckpt=None) -> dict:
     return paths
 
 
+def _forwards() -> int:
+    return spans.counters().get("ops.rbf.forwards", 0)
+
+
+def _newton_iterations() -> int:
+    return spans.counters().get("nmpc.newton_iterations", 0)
+
+
 def profile_trajgen(device, batches, config_f=None, ckpt=None,
                     iters: int = 200) -> dict:
     """{(path, batch): (us per batch, trajs/s, rbf_forward launches per
     call)} over seeded goals, ``iters`` calls in a row (CUDA events)."""
-    from irbfn_tpu_torch.ops import wcrbf_forward
-
     paths = trajgen_paths(device, config_f, ckpt)
     out = {}
     for batch in batches:
         goals = torch.as_tensor(trajgen_goals(batch), device=device)
         for name, fn in paths.items():
-            calls0 = wcrbf_forward.launches
+            calls0 = _forwards()
             ms = event_ms(lambda: fn(goals), iters)
-            launches = (wcrbf_forward.launches - calls0) / (iters + WARMUP)
+            launches = (_forwards() - calls0) / (iters + WARMUP)
             out[name, batch] = (1e3 * ms, batch / (ms * 1e-3), launches)
     return out
 
@@ -428,10 +437,14 @@ def world_loops(device, lanes):
 
 def _kernels(prof) -> list:
     """The profile's device-side rows (kernels and device copies). The
-    host-side operator rows carry their kernels' device time a second time:
-    summing every row would count it twice."""
+    host-side operator rows carry their kernels' device time a second time,
+    and so do the device-side copies of the port's spans (user annotations
+    that cover the kernels they label): summing either would count it
+    twice."""
     return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(spans.PREFIXES)]
 
 
 def _device_ms(prof) -> float:
@@ -477,15 +490,33 @@ def profile_loop(env, sim, policy, steps, warmup, profiled=None):
 
 
 def profile_family(device):
+    """One lattice family with the port's spans on: first its set-up run
+    (the library's build or load, handles, pinned buffers), then a warm run
+    under the profiler. Returns (wall ms, device ms, ADMM kernel ms, the
+    table, the warm family's split by span and the set-up run's, each as
+    ``spans.self_times`` gives it, and the set-up's nvcc seconds)."""
     args = gen.parse_args(["--device", str(device), "--v_car_min", "8.0"])
-    gen.solve_table(args)  # warm: builds, handles, pinned buffers
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = gen.solve_table(args)
-        torch.cuda.synchronize()
+    was = spans.enabled()
+    spans.enable(True)
+    spans.reset()
+    try:
+        nvcc = spans.counters().get("ops.nvcc_s", 0)
+        gen.solve_table(args)
+        nvcc = spans.counters().get("ops.nvcc_s", 0) - nvcc
+        setup = spans.self_times(spans.records())
+        spans.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = gen.solve_table(args)
+            torch.cuda.synchronize()
+        split = spans.self_times(spans.records())
+    finally:
+        spans.enable(was)
+        spans.reset()
     kernel = sum(e.self_device_time_total for e in _kernels(prof)
                  if "admm_solve_kernel" in e.key) / 1e3
-    return 1e3 * res["seconds"], _device_ms(prof), kernel, res
+    return (1e3 * res["seconds"], _device_ms(prof), kernel, res, split,
+            setup, nvcc)
 
 
 def _top_device(prof, n=8) -> str:
@@ -588,15 +619,17 @@ def profile_nmpc(device, batch: int, seed: int = 0, reps: int = 32,
     nmpc.solve_lattice_point(rows, params, short)  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    iters0 = _newton_iterations()
     t0 = time.perf_counter()
     sol = nmpc.solve_lattice_point(rows, params, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    iters = nmpc.LAST_SOLVE_STATS["newton_iterations"]
+    iters = _newton_iterations() - iters0
     peak = torch.cuda.max_memory_allocated() / 2**30
     feasible = float(sol.feasible.float().mean())
+    iters0 = _newton_iterations()
     prof, p_wall = traced_solve(rows, params, short, trace_dir)
-    p_iters = nmpc.LAST_SOLVE_STATS["newton_iterations"]
+    p_iters = _newton_iterations() - iters0
     launches = sum(e.count for e in prof.key_averages()
                    if e.key == "cudaLaunchKernel")
     dev = _device_ms(prof)
@@ -814,11 +847,20 @@ def main(argv=None):
               f"{launches:.0f} kernel launches per step", flush=True)
     if "fit" not in parts:
         return record
-    wall, dev, kernel, family = profile_family(device)
+    wall, dev, kernel, family, split, setup, nvcc = profile_family(device)
+    print("one lattice family's set-up run: " + ", ".join(
+        f"{name} {total:.3f} s ({calls} calls)"
+        for name, (calls, total, _) in sorted(setup.items())
+        if name in ("ops.library", spans.FAMILY))
+        + f"; nvcc {nvcc:.3f} s", flush=True)
     print(f"one lattice family under the profiler: wall {wall:.1f} ms, "
           f"device {dev:.1f} ms, admm_solve kernel {kernel:.1f} ms "
           f"({100 * kernel / dev:.1f}% of device time), idle share "
-          f"{1 - dev / wall:.3f}", flush=True)
+          f"{1 - dev / wall:.3f}; the host's self time by span: "
+          + ", ".join(f"{name} {1e3 * own:.2f} ms ({calls} calls)"
+                      for name, (calls, _, own) in sorted(
+                          split.items(), key=lambda kv: -kv[1][2])),
+          flush=True)
     train, gram, visits = profile_fit_and_train(device, family, args.steps)
     for name, (wall, dev, idle, launches, top) in (
             ("train step (L1 loss, batch 8192, R=16, K=512, F=5)", train),

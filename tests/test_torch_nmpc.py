@@ -33,6 +33,7 @@ from irbfn_tpu_torch.solvers import nmpc as T
 from irbfn_tpu_torch.solvers.oracle import (compare_to_oracle, load_oracle,
                                             make_problem_fns, save_oracle,
                                             solve_oracle_rows)
+from irbfn_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 ORACLES = Path(__file__).parent / "oracles"
@@ -318,13 +319,18 @@ def test_rows_of_a_batch_solve_as_they_do_alone():
     (runs to the cap) give, row by row, what each gives alone."""
     rows = np.array([[0.0, 0.0, 5.0, 0.0, 5.0, 0.0, 0.0, 0.0],
                      [1.9, 0.3, 7.0, -1.0, 3.0, 2.6, -1.0, 0.1]])
+    def newton_iterations():
+        return spans.counters().get("nmpc.newton_iterations", 0)
+
+    iters0 = newton_iterations()
     pair = sol_np(T.solve_lattice_point(t64(rows), tp64(), SMALL))
-    iters_pair = T.LAST_SOLVE_STATS["newton_iterations"]
+    iters_pair = newton_iterations() - iters0
     iters_alone = []
     for i in range(2):
+        iters0 = newton_iterations()
         alone = sol_np(T.solve_lattice_point(t64(rows[i:i + 1]), tp64(),
                                              SMALL))
-        iters_alone.append(T.LAST_SOLVE_STATS["newton_iterations"])
+        iters_alone.append(newton_iterations() - iters0)
         for k in pair:  # up to the batch size's effect on vectorised sums
             np.testing.assert_allclose(pair[k][i], alone[k][0], rtol=1e-6,
                                        atol=1e-6, err_msg=k)

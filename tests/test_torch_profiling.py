@@ -16,6 +16,9 @@ on the CPU, against the JAX package's helpers and scripts.
 - ``--reps`` and ``--trace_dir`` parse with ``scripts/profile_nmpc.py``'s
   meanings (``--parts nmpc`` needs the card), and ``traced_solve`` writes
   the trace of a solve on the CPU at a tiny batch.
+- The device time sums kernels only: the device-side copies of the port's
+  spans (user annotations) are left out, so a family's device time cannot
+  exceed its wall time once ``profile_family`` turns the spans on.
 """
 
 import os
@@ -31,6 +34,7 @@ from irbfn_tpu.solvers import solve_g1_lattice as j_solve_g1_lattice
 from irbfn_tpu.utils import profiling as jprof
 from irbfn_tpu_torch.ops import fma_ceiling
 from irbfn_tpu_torch.utils import profiling as tprof
+from irbfn_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -138,6 +142,61 @@ def test_traced_solve_writes_a_trace_on_the_cpu(tmp_path):
     assert any(e.key.startswith("aten::") for e in prof.key_averages())
 
 
+class _Row:
+    def __init__(self, key, device_us, on_device=True, **flags):
+        self.key = key
+        self.self_device_time_total = device_us
+        self.device_type = (torch.autograd.DeviceType.CUDA if on_device
+                            else torch.autograd.DeviceType.CPU)
+        self.__dict__.update(flags)
+
+
+class _Profile:
+    def __init__(self, rows):
+        self.rows = rows
+
+    def key_averages(self):
+        return self.rows
+
+
+def test_device_time_leaves_the_spans_annotations_out():
+    """A family of 100 us of kernels under spans that cover them: the
+    annotations' device rows (flagged, or, where a torch build lacks the
+    flag, named by a layer of ``utils/spans.py``) add nothing."""
+    prof = _Profile([
+        _Row("admm_solve_kernel_family", 80.0),
+        _Row("Memcpy HtoD (Pinned -> Device)", 20.0),
+        _Row("lattice.family", 100.0, is_user_annotation=True),
+        _Row("lattice.solve", 80.0),  # no flag on this build
+        _Row("ops.admm", 80.0, is_user_annotation=False),
+        _Row("aten::copy_", 20.0, on_device=False),
+    ])
+    assert [e.key for e in tprof._kernels(prof)] == [
+        "admm_solve_kernel_family", "Memcpy HtoD (Pinned -> Device)"]
+    assert tprof._device_ms(prof) == pytest.approx(0.1)
+
+
+def test_the_spans_are_user_annotations_in_a_profile():
+    """On this torch build the profiler flags the spans' rows as user
+    annotations, the first of ``_kernels``' two tests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spans.enable(True)
+    spans.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with spans.span(spans.FAMILY):
+                with spans.span("lattice.solve", 0):
+                    torch.ones(4).sum()
+    finally:
+        spans.enable(False)
+        spans.reset()
+    rows = {e.key: e for e in prof.key_averages()}
+    for name in (spans.FAMILY, "lattice.solve"):
+        assert rows[name].is_user_annotation
+    assert not rows["aten::sum"].is_user_annotation
+
+
 def test_plain_fma_chain_rate_is_finite():
     c = tprof.measure_ceilings("cpu", n=1 << 14, repeats=1,
                                hbm_bytes=1 << 20, iters=2)
@@ -159,7 +218,7 @@ def test_fma_chain_plain_version():
     ref = a ** n * x.double() + b * (a ** n - 1) / (a - 1)
     np.testing.assert_allclose(y.double().numpy(), ref.numpy(), rtol=0,
                                atol=n * np.finfo(np.float32).eps * 2.0)
-    assert fma_ceiling.fma_chain.launches == 0
+    assert spans.counters().get("ops.fma.launches", 0) == 0
     with pytest.raises(ValueError):
         fma_ceiling.fma_chain(torch.ones(3, device="meta"))
 

@@ -23,6 +23,7 @@ from irbfn_tpu_torch.models import BASIS_FUNCTIONS, WCRBFNet, from_config
 from irbfn_tpu_torch.models import wcrbf as twcrbf
 from irbfn_tpu_torch.ops import rbf
 from irbfn_tpu_torch.train import params_from_jax
+from irbfn_tpu_torch.utils import spans
 
 torch.set_num_threads(1)
 
@@ -216,9 +217,9 @@ def test_torch_rbf_dispatch_by_device(shared_net):
     device that is neither CPU nor CUDA raises (there is no fallback)."""
     model, params = shared_net
     net = _port(model, params)
-    before = rbf.wcrbf_forward.launches
+    before = spans.counters().get("ops.rbf.forwards", 0)
     _forward(net, np.zeros((3, 8), np.float32))
-    assert rbf.wcrbf_forward.launches == before
+    assert spans.counters().get("ops.rbf.forwards", 0) == before
     ops = rbf.wcrbf_params_to_kernel(net)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         rbf.wcrbf_forward(torch.zeros((3, 8), device="meta"), ops)

@@ -1,0 +1,279 @@
+"""The port's spans and counters (``irbfn_tpu_torch/utils/spans.py``): a
+no-op while tracing is off, nested records while it is on, the lattice
+pipeline's spans and counters on the CPU (one process, and two gloo ranks),
+and the counters that replaced the ops' ``.launches`` attributes and the
+NMPC solver's ``LAST_SOLVE_STATS``."""
+
+import contextlib
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from irbfn_tpu_torch.ops import admm
+from irbfn_tpu_torch.parallel import datagen, launch
+from irbfn_tpu_torch.solvers import nmpc
+from irbfn_tpu_torch.solvers.goal_mpc import GoalMPCConfig, solve_goal_lattice
+from irbfn_tpu_torch.utils import spans
+
+
+@pytest.fixture
+def tracing():
+    """Tracing on with no records; off again, and cleared, afterwards."""
+    was = spans.enabled()
+    spans.enable(True)
+    spans.reset()
+    yield
+    spans.enable(was)
+    spans.reset()
+
+
+def _delta(before: dict, name: str) -> int:
+    return spans.counters().get(name, 0) - before.get(name, 0)
+
+
+def test_off_reads_no_clock_and_opens_no_range(monkeypatch):
+    def forbidden(*a, **k):
+        raise AssertionError("called while tracing is off")
+
+    monkeypatch.setattr(time, "monotonic_ns", forbidden)
+    monkeypatch.setattr(torch.profiler, "record_function", forbidden)
+    spans.enable(False)
+    spans.reset()
+    first = spans.span("lattice.stage", 0, label="chunk")
+    with first, spans.span(spans.FAMILY):
+        pass
+    assert first is spans.span("goal.operands")  # one shared object
+    assert spans.records() == []
+
+
+def test_records_nest_with_parent_family_and_chunk(tracing, monkeypatch):
+    opened = []
+
+    class Range:
+        def __init__(self, name):
+            opened.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, "record_function", Range)
+    with spans.span("ops.library", label="admm_solve"):
+        pass
+    for _ in range(2):
+        with spans.span(spans.FAMILY):
+            with spans.span("lattice.solve", 1, label="seven"):
+                with spans.span("goal.operands"):
+                    pass
+            with spans.span("lattice.assemble"):
+                with spans.span("lattice.drain", 4):
+                    pass
+    recs = spans.records()
+    assert opened == [r["name"] for r in recs]
+    assert [(r["name"], r["parent"], r["family"], r["chunk"])
+            for r in recs] == [
+        ("ops.library", -1, None, None),
+        ("lattice.family", -1, 0, None),
+        ("lattice.solve", 1, 0, 1),
+        ("goal.operands", 2, 0, 1),
+        ("lattice.assemble", 1, 0, None),
+        ("lattice.drain", 4, 0, 4),
+        ("lattice.family", -1, 1, None),
+        ("lattice.solve", 6, 1, 1),
+        ("goal.operands", 7, 1, 1),
+        ("lattice.assemble", 6, 1, None),
+        ("lattice.drain", 9, 1, 4),
+    ]
+    assert recs[0]["label"] == "admm_solve"
+    assert recs[2]["label"] == "seven" and recs[3]["label"] is None
+    for r in recs:
+        assert r["start_ns"] <= r["end_ns"]
+        if r["parent"] >= 0:
+            p = recs[r["parent"]]
+            assert p["start_ns"] <= r["start_ns"] <= r["end_ns"] <= p[
+                "end_ns"]
+    own = spans.self_times(recs)
+    assert own["lattice.family"][0] == 2
+    assert own["lattice.solve"][2] <= own["lattice.solve"][1]
+    spans.reset()
+    assert spans.records() == []
+    with spans.span(spans.FAMILY):
+        pass
+    assert spans.records()[0]["family"] == 0  # the count restarts
+
+
+def test_counters_add_and_snapshot():
+    before = spans.counters()
+    spans.count("test.counter")
+    spans.count("test.counter", 4)
+    snap = spans.counters()
+    assert _delta(before, "test.counter") == 5
+    spans.count("test.counter")
+    assert snap["test.counter"] == before.get("test.counter", 0) + 5
+    spans.count("test.other", 2)
+    assert spans.since(snap, "test.") == {"test.counter": 1,
+                                          "test.other": 2}
+    assert spans.since(spans.counters(), "test.") == {}
+
+
+def test_the_table_generator_prints_what_the_pipeline_moved(capsys):
+    """``gen_goal_mpc_table`` ends with the ``lattice.`` counters that moved
+    on this rank: families, rows and chunks of a tiny CPU grid (3 families
+    of 36 goals in chunks of 8: 5 chunks a family)."""
+    from irbfn_tpu_torch.parallel import gen_goal_mpc_table as gen
+
+    args = gen.parse_args(
+        ["--device", "cpu", "--iters", "5", "--chunk", "8",
+         "--v_car_min", "0.0", "--v_car_max", "1.0", "--d_v_car", "0.5",
+         "--x_goal_min", "0.0", "--x_goal_max", "0.2",
+         "--y_goal_min", "0.0", "--y_goal_max", "0.1",
+         "--t_goal_min", "0.0", "--t_goal_max", "0.1",
+         "--v_goal_min", "0.0", "--v_goal_max", "1.0"])
+    res = gen.solve_table(args)
+    G = res["goals_raw"].shape[0]
+    assert G == 3 * 2 * 2 * 3
+    assert res["pipeline"] == {"lattice.chunks": 3 * 5,
+                               "lattice.families": 3,
+                               "lattice.rows": 3 * G}
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line == "pipeline on this rank: chunks 15, families 3, rows 108"
+
+
+def test_solve_lattice_records_every_chunk(tracing):
+    """3.5 chunks: four chunks' stage, solve, put and drain spans, the
+    drains the pipeline holds back inside ``lattice.assemble``, and
+    ``lattice.rows`` equal to the lattice's rows."""
+    rows = np.arange(28, dtype=np.float32).reshape(14, 2)
+    before = spans.counters()
+    out = datagen.solve_lattice(lambda r: {"s": r.sum(-1)}, rows,
+                                batch_per_device=4, device="cpu")
+    np.testing.assert_array_equal(out["s"], rows.sum(-1))
+    recs = spans.records()
+    names = [r["name"] for r in recs]
+    assert names[0] == "lattice.family" and names.count(
+        "lattice.family") == 1
+    for name in ("lattice.stage", "lattice.solve", "lattice.put",
+                 "lattice.drain"):
+        assert sorted(r["chunk"] for r in recs if r["name"] == name) == [
+            0, 1, 2, 3], name
+    assemble = names.index("lattice.assemble")
+    held = [r for r in recs if r["name"] == "lattice.drain"
+            and r["parent"] == assemble]
+    assert len(held) == datagen.PIPELINE_DEPTH
+    assert all(r["family"] == 0 for r in recs)
+    assert _delta(before, "lattice.rows") == 14
+    assert _delta(before, "lattice.chunks") == 4
+    assert _delta(before, "lattice.families") == 1
+    # the card's copies only: none on the CPU
+    assert _delta(before, "lattice.h2d_bytes") == 0
+
+
+def test_goal_lattice_operands_inside_the_chunks_solve(tracing):
+    goals = np.random.default_rng(0).uniform(
+        [-1.0, 0.0, -1.0, -3.0], [4.0, 4.0, 8.0, 3.0],
+        (10, 4)).astype(np.float32)
+    solve_goal_lattice(2.0, goals, GoalMPCConfig(), iters=5,
+                       batch_per_device=4, device="cpu")
+    recs = spans.records()
+    ops = [r for r in recs if r["name"] == "goal.operands"]
+    assert [r["chunk"] for r in ops] == [0, 1, 2]
+    assert all(recs[r["parent"]]["name"] == "lattice.solve" for r in ops)
+
+
+def _sharded_rank(rows, bpd):
+    spans.enable(True)
+    spans.reset()
+    before = spans.counters()
+    out = datagen.solve_lattice_sharded(
+        lambda r: {"s": r.sum(-1), "b": r[:, 0] > 10}, rows,
+        batch_per_device=bpd, device="cpu")
+    return (out, {k: _delta(before, k) for k in
+                  ("lattice.pad_rows", "lattice.rows", "lattice.gather_bytes",
+                   "lattice.chunks")},
+            [(r["name"], r["chunk"]) for r in spans.records()])
+
+
+def test_sharded_lattice_counts_the_split(tmp_path):
+    """Two gloo ranks, 13 rows in blocks of 4: chunks of (4, 4) and (4, 1)
+    rows, so rank 1 pads 3 rows and rank 0 none; every rank counts its own
+    rows and gathers both blocks of both columns."""
+    rows = np.arange(26, dtype=np.float32).reshape(13, 2)
+    per_rank = launch.spawn(_sharded_rank, 2, "cpu", rows, 4,
+                            store_dir=tmp_path)
+    sizes = [[4, 4], [4, 1]]
+    for rank, (out, counts, recs) in enumerate(per_rank):
+        np.testing.assert_array_equal(out["s"], rows.sum(-1))
+        assert counts["lattice.pad_rows"] == sum(s[0] - s[rank]
+                                                 for s in sizes)
+        assert counts["lattice.rows"] == sum(s[rank] for s in sizes)
+        assert counts["lattice.chunks"] == 2
+        # two chunks of 2 ranks x 4 rows: a float32 and a uint8 column
+        assert counts["lattice.gather_bytes"] == 2 * 2 * 4 * (4 + 1)
+        assert [c for n, c in recs if n == "lattice.gather"] == [0, 1]
+    assert per_rank[0][1]["lattice.pad_rows"] == 0
+    assert per_rank[1][1]["lattice.pad_rows"] == 3
+
+
+class _FakeStream:
+    cuda_stream = 0
+
+
+class _FakeADMM:
+    """The kernel's library with a launch that does nothing."""
+
+    @staticmethod
+    def admm_solve_f32(*args):
+        return 0
+
+
+@pytest.mark.parametrize("F, G, variant", [(1, 40960, "family"),
+                                           (5, 1, "lane")])
+def test_admm_launches_count_by_variant(monkeypatch, tracing, F, G,
+                                        variant):
+    """One launch adds one to ``ops.admm.<variant>`` (what
+    ``admm_solve.launches`` counted, now split by variant) inside one
+    ``ops.admm`` span; the card's calls are stood in for on the CPU."""
+    monkeypatch.setattr(admm, "_library", lambda: _FakeADMM)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: _FakeStream)
+    T = 8
+    n, m = 2 * T, 4 * T - 1
+    q = torch.zeros((F, G, n))
+    ops = (torch.zeros((F, m, n)), torch.zeros((F, n, n)),
+           torch.zeros((F, m)), torch.zeros((F, m)), torch.ones(F))
+    before = spans.counters()
+    admm._launch(q, *ops, 600, 1e-6, 1.6)
+    assert _delta(before, f"ops.admm.{variant}") == 1
+    other = "lane" if variant == "family" else "family"
+    assert _delta(before, f"ops.admm.{other}") == 0
+    (r,) = spans.records()
+    assert r["name"] == "ops.admm" and r["label"] == variant
+
+
+def test_newton_iterations_count_every_pass(monkeypatch):
+    """``nmpc.newton_iterations`` adds one for each Newton pass, as
+    ``LAST_SOLVE_STATS["newton_iterations"]`` did within a solve."""
+    from irbfn_tpu_torch.dynamics.params import f1tenth_params
+
+    passes = []
+    real = nmpc._newton_iteration
+
+    def counted(*args):
+        passes.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(nmpc, "_newton_iteration", counted)
+    rows = torch.tensor([[0.0, 0.0, 5.0, 0.0, 5.0, 0.0, 0.0, 0.0],
+                         [1.9, 0.3, 7.0, -1.0, 3.0, 2.6, -1.0, 0.1]],
+                        dtype=torch.float64)
+    before = spans.counters()
+    nmpc.solve_lattice_point(
+        rows, f1tenth_params(dtype=torch.float64, device="cpu"),
+        nmpc.NMPCConfig(gn_iters=3, al_outer=2), device="cpu")
+    assert _delta(before, "nmpc.newton_iterations") == len(passes) > 0
