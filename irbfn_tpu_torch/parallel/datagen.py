@@ -5,9 +5,12 @@ rows ('ij' order, so the table layout matches the reference's), and
 ``solve_lattice`` runs a batched solver over them in chunks on one device;
 ``solve_lattice_sharded`` splits every chunk over the ranks of the data axis
 (``parallel/mesh.py``) and ``all_gather``s the results, so that every rank
-returns the whole table. On the card, chunk i's results are copied back
-into pinned host buffers while chunk i+1 is already queued, so the device
-does not wait for those copies. Each family call, and each chunk's
+returns the whole table. A call's host work is done once, not once a
+chunk: the first chunk's result allocates the table's columns (pinned on
+the card), and each chunk's results are copied into their rows while the
+next chunk is already queued, so the device waits neither for those copies
+nor for a concatenation; the chunks' rows reach the card through pinned
+staging buffers that every call reuses. Each family call, and each chunk's
 staging, solve, gather, copy back and drain, is a span of
 ``utils/spans.py`` (``lattice.*``), with its rows and bytes counted there.
 ``controls_block`` flattens a table's control sequences into the layout the
@@ -18,6 +21,7 @@ nets are trained on.
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Sequence
 
@@ -74,45 +78,63 @@ def build_lattice(grid: Sequence[GridSpec], dtype=np.float32) -> np.ndarray:
     return np.stack([m.reshape(-1) for m in mesh], axis=-1).astype(dtype)
 
 
-def _to_host(t: torch.Tensor):
-    """Start the copy of ``t`` into host memory; returns (buffer, event),
-    the event None when ``t`` is already on the host."""
-    if t.device.type == "cpu":
-        return t, None
-    nbytes = t.numel() * t.element_size()
-    spans.count("lattice.d2h_bytes", nbytes)
-    spans.count("lattice.pinned_bytes", nbytes)
-    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    buf.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return buf, event
-
-
 class _HostPipeline:
-    """The chunks' results on their way to the host: each dict of tensors
-    is copied into pinned buffers as it is queued, and waited for only
-    when more than ``PIPELINE_DEPTH`` are in flight, or at the end."""
+    """The chunks' results on their way into the lattice's host columns.
 
-    def __init__(self, progress_fn=None):
-        self.outs, self.inflight = [], []
+    The first chunk's result allocates one column a key, ``n`` rows in
+    front of the chunk's trailing shape and dtype, pinned when the result
+    is on the card; the columns are new on every call, since the caller
+    keeps them. Each chunk's rows are copied into their slice as they are
+    queued, and waited for only when more than ``PIPELINE_DEPTH`` chunks
+    are in flight, or at the end."""
+
+    def __init__(self, n: int, progress_fn=None):
+        self.n, self.cols, self.inflight = n, None, []
         self.progress_fn = progress_fn
 
-    def put(self, result: dict, done: int, chunk: int):
+    def _columns(self, result: dict) -> dict:
+        cols = {}
+        for k, v in result.items():
+            first = v[0] if isinstance(v, list) else v
+            cols[k] = torch.empty((self.n,) + first.shape[1:],
+                                  dtype=first.dtype, pin_memory=first.is_cuda)
+            if first.is_cuda:
+                spans.count("lattice.pinned_bytes",
+                            cols[k].numel() * cols[k].element_size())
+        return cols
+
+    def put(self, result: dict, start: int, done: int, chunk: int):
+        """Copy ``result`` into the columns' rows from ``start`` on: each
+        key's value is the chunk's rows as one tensor, or as a list of
+        blocks laid end to end."""
         with spans.span("lattice.put", chunk):
-            self.inflight.append(
-                ({k: _to_host(v) for k, v in result.items()}, done, chunk))
+            if self.cols is None:
+                self.cols = self._columns(result)
+            nbytes, on_card = 0, False
+            for k, v in result.items():
+                row = start
+                for block in (v if isinstance(v, list) else [v]):
+                    m = block.shape[0]
+                    if m:
+                        self.cols[k][row:row + m].copy_(block,
+                                                        non_blocking=True)
+                        nbytes += block.numel() * block.element_size()
+                        on_card |= block.is_cuda
+                    row += m
+            event = None
+            if on_card:
+                spans.count("lattice.d2h_bytes", nbytes)
+                event = torch.cuda.Event()
+                event.record()
+            self.inflight.append((event, done, chunk))
         if len(self.inflight) > PIPELINE_DEPTH:
             self._drain_one()
 
     def _drain_one(self):
-        result, done, chunk = self.inflight.pop(0)
+        event, done, chunk = self.inflight.pop(0)
         with spans.span("lattice.drain", chunk):
-            for _, event in result.values():
-                if event is not None:
-                    event.synchronize()
-            self.outs.append({k: buf.numpy()
-                              for k, (buf, _) in result.items()})
+            if event is not None:
+                event.synchronize()
         if self.progress_fn is not None:
             self.progress_fn(done)
 
@@ -120,26 +142,56 @@ class _HostPipeline:
         with spans.span("lattice.assemble"):
             while self.inflight:
                 self._drain_one()
-            if not self.outs:
+            if self.cols is None:
                 raise ValueError(f"{name} needs at least one row")
-            return {k: np.concatenate([o[k] for o in self.outs])
-                    for k in self.outs[0]}
+            return {k: c.numpy() for k, c in self.cols.items()}
 
 
-def _to_device(rows: np.ndarray, device, chunk: int,
-               real: int) -> torch.Tensor:
-    """Chunk ``chunk``'s rows on ``device``, through pinned memory on the
-    card; ``real`` of them are the lattice's (the rest stand in for an
-    empty block)."""
+# pinned staging buffers of the chunks' rows, kept across calls:
+# {(shape, dtype): [[buffer, event of the H2D copy that last read it], ...]},
+# used in turn
+_STAGING: dict = {}
+
+
+def _staging_slot(shape: tuple, dtype) -> list:
+    """The next of ``PIPELINE_DEPTH + 1`` pinned buffers of ``shape`` and
+    ``dtype``, once the copy that last read it is done: with at most
+    ``PIPELINE_DEPTH`` chunks in flight, that copy has long finished."""
+    ring = _STAGING.setdefault((shape, dtype), collections.deque())
+    if len(ring) <= PIPELINE_DEPTH:
+        slot = [torch.empty(shape, dtype=dtype, pin_memory=True), None]
+        spans.count("lattice.pinned_bytes",
+                    slot[0].numel() * slot[0].element_size())
+    else:
+        slot = ring.popleft()
+        if slot[1] is not None:
+            slot[1].synchronize()
+    ring.append(slot)
+    return slot
+
+
+def _to_device(rows: np.ndarray, device, chunk: int, real: int,
+               capacity: int) -> torch.Tensor:
+    """Chunk ``chunk``'s rows on ``device``, through a pinned staging
+    buffer of ``capacity`` rows on the card; ``real`` of them are the
+    lattice's (the rest stand in for an empty block)."""
     with spans.span("lattice.stage", chunk):
         spans.count("lattice.rows", real)
         t = torch.from_numpy(np.ascontiguousarray(rows))
         if device.type != "cuda":
             return t.to(device)
-        nbytes = t.numel() * t.element_size()
-        spans.count("lattice.pinned_bytes", nbytes)
-        spans.count("lattice.h2d_bytes", nbytes)
-        return t.pin_memory().to(device, non_blocking=True)
+        spans.count("lattice.h2d_bytes", t.numel() * t.element_size())
+        slot = _staging_slot((capacity,) + t.shape[1:], t.dtype)
+        staged = slot[0][:t.shape[0]]
+        # one thread: torch's parallel copy waits for its slowest worker,
+        # and on a host whose cores are shared a descheduled worker now
+        # and then costs a scheduler tick (~5 ms), here on the path of the
+        # family's first chunk while the card has nothing queued
+        np.copyto(staged.numpy(), rows)
+        out = staged.to(device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return out
 
 
 def _solve_chunk(solve_fn, rows: torch.Tensor, args, chunk: int):
@@ -165,22 +217,25 @@ def solve_lattice(solve_fn: Callable, rows: np.ndarray,
         dict of numpy arrays with leading dim N.
     """
     device = resolve_device(device)
+    n = rows.shape[0]
+    capacity = min(batch_per_device, n)
     with spans.span(spans.FAMILY):
         spans.count("lattice.families")
-        pipe = _HostPipeline()
-        for c, start in enumerate(range(0, rows.shape[0], batch_per_device)):
+        pipe = _HostPipeline(n)
+        for c, start in enumerate(range(0, n, batch_per_device)):
             part = rows[start:start + batch_per_device]
-            chunk = _to_device(part, device, c, part.shape[0])
-            pipe.put(_solve_chunk(solve_fn, chunk, args, c),
+            chunk = _to_device(part, device, c, part.shape[0], capacity)
+            pipe.put(_solve_chunk(solve_fn, chunk, args, c), start,
                      start + part.shape[0], c)
         return pipe.result("solve_lattice")
 
 
-def _gather_rows(t: torch.Tensor, sizes, group) -> torch.Tensor:
+def _gather_rows(t: torch.Tensor, sizes, group) -> list:
     """The data axis' blocks of one chunk, in rank order: rank j holds
     ``sizes[j]`` valid rows of ``t``. NCCL gathers equal sizes only, so
     every block goes padded to ``sizes[0]`` (the largest) and comes back
-    trimmed; gloo gathers no bool, so bools travel as uint8."""
+    trimmed, each block left where it landed for the host pipeline to copy
+    into its rows; gloo gathers no bool, so bools travel as uint8."""
     n = sizes[0]
     if t.shape[0] < n:
         t = torch.cat([t, t[-1:].expand((n - t.shape[0],) + t.shape[1:])])
@@ -189,8 +244,7 @@ def _gather_rows(t: torch.Tensor, sizes, group) -> torch.Tensor:
     spans.count("lattice.gather_bytes",
                 len(sizes) * send.numel() * send.element_size())
     dist.all_gather(blocks, send, group=group)
-    out = torch.cat([b[:m] for b, m in zip(blocks, sizes)])
-    return out.to(torch.bool) if t.dtype == torch.bool else out
+    return [b[:m].to(t.dtype) for b, m in zip(blocks, sizes)]
 
 
 def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
@@ -240,16 +294,19 @@ def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
         print(f"  lattice progress {done:,}/{n_total:,} ({rate:,.0f} rows/s)",
               flush=True)
 
+    capacity = min(bpd, n_total)
     with spans.span(spans.FAMILY):
         spans.count("lattice.families")
-        pipe = _HostPipeline(report if progress and mesh.rank == 0 else None)
+        pipe = _HostPipeline(
+            n_total, report if progress and mesh.rank == 0 else None)
         bare = False
         for c, start in enumerate(range(0, n_total, D * bpd)):
             sizes = [min(max(n_total - start - j * bpd, 0), bpd)
                      for j in range(D)]
             mine = rows[start + i * bpd:start + i * bpd + sizes[i]]
             result = _solve_chunk(solve_fn, _to_device(
-                mine if sizes[i] else rows[-1:], device, c, sizes[i]), args, c)
+                mine if sizes[i] else rows[-1:], device, c, sizes[i],
+                capacity), args, c)
             bare = torch.is_tensor(result)
             if bare:
                 result = {"": result}
@@ -261,7 +318,7 @@ def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
                     spans.count("lattice.pad_rows", sizes[0] - sizes[i])
                     result = {k: _gather_rows(v, sizes, group)
                               for k, v in result.items()}
-            pipe.put(result, start + sum(sizes), c)
+            pipe.put(result, start, start + sum(sizes), c)
         out = pipe.result("solve_lattice_sharded")
     return out[""] if bare else out
 

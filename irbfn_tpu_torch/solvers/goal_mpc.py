@@ -197,16 +197,15 @@ def _goal_vector(fam: GoalQPFamily, goals, cfg: GoalMPCConfig):
     return (fam.qw[..., None, :] * resid) @ fam.Su
 
 
-def _family_operands(v_car, goals, cfg, sigma):
-    """Family matrices, the speed-scaled rho, the KKT inverse and the goal
-    rows' linear terms, for v_car of shape ``batch`` and goals of shape
-    ``batch + (G, 4)``.
+def _family_matrices(v_car, cfg, sigma, dtype, device):
+    """What every goal of a family shares, for v_car of shape ``batch``:
+    the family's matrices, the speed-scaled rho and the KKT inverse.
 
     rho law: in unit-row constraint coordinates with over-relaxation
     alpha = 1.6, rho grows with the linearization speed as max(1, |v|/2)
     (P's yaw-coupling curvature scales ~v^2).
     """
-    dtype, device = goals.dtype, goals.device
+    spans.count("goal.operand_builds")
     fam = condensed_family(v_car, cfg, dtype, device)
     v = _as_speed(v_car, dtype, device)
     rho = torch.clamp(v.abs() * 0.5, min=1.0)
@@ -221,14 +220,27 @@ def _family_operands(v_car, goals, cfg, sigma):
                                          upper=False)
     kinv = torch.linalg.solve_triangular(chol.transpose(-1, -2), linv,
                                          upper=True)
+    return fam, rho, kinv
+
+
+def _family_operands(v_car, goals, cfg, sigma):
+    """``_family_matrices`` and the goal rows' linear terms, for goals of
+    shape ``batch + (G, 4)``."""
+    fam, rho, kinv = _family_matrices(v_car, cfg, sigma, goals.dtype,
+                                      goals.device)
+    return fam, rho, kinv, _goal_vector(fam, goals, cfg)
+
+
+def _solve_families(v, goals, cfg, iters, sigma, tol,
+                    matrices=None) -> GoalMPCSolution:
+    """v (F,), goals (F, G, 4) -> a solution of shape (F, G); the families'
+    ``_family_matrices`` are built here unless ``matrices`` holds them."""
+    if matrices is None:
+        with spans.span("goal.operands"):
+            matrices = _family_matrices(v, cfg, sigma, goals.dtype,
+                                        goals.device)
+    fam, rho, kinv = matrices
     q = _goal_vector(fam, goals, cfg)
-    return fam, rho, kinv, q
-
-
-def _solve_families(v, goals, cfg, iters, sigma, tol) -> GoalMPCSolution:
-    """v (F,), goals (F, G, 4) -> a solution of shape (F, G)."""
-    with spans.span("goal.operands"):
-        fam, rho, kinv, q = _family_operands(v, goals, cfg, sigma)
     x, r_prim, r_dual = admm_solve(q.contiguous(), fam.A_con.contiguous(),
                                    kinv.contiguous(), fam.lo.contiguous(),
                                    fam.hi.contiguous(), rho.contiguous(),
@@ -277,23 +289,42 @@ def solve_goal_mpc(inputs, cfg: GoalMPCConfig = GoalMPCConfig(),
     return GoalMPCSolution(*(t[:, 0] for t in sol))
 
 
+def _lattice_chunk_fn(v_car, cfg: GoalMPCConfig, iters: int):
+    """One family's chunk solve for the lattice pipeline: goal rows (B, 4)
+    -> the table columns {speed, steer, converged} (B,). The family's
+    matrices are built once, at the first chunk (one ``goal.operands`` span
+    inside its ``lattice.solve``); every chunk then computes only its goals'
+    linear terms and launches the sweeps on the same operands, the solve
+    ``solve_goal_family`` makes of each chunk."""
+    family = []
+
+    def fn(g):
+        if not family:
+            v = _as_speed(v_car, g.dtype, g.device).reshape(1)
+            with spans.span("goal.operands"):
+                family.append((v, _family_matrices(v, cfg, 1e-6, g.dtype,
+                                                   g.device)))
+        v, matrices = family[0]
+        sol = _solve_families(v, g[None], cfg, iters, 1e-6, 2e-3, matrices)
+        return {"speed": sol.speed[0], "steer": sol.steer[0],
+                "converged": sol.converged[0]}
+
+    return fn
+
+
 def solve_goal_lattice(v_car, goals, cfg: GoalMPCConfig = GoalMPCConfig(),
                        iters: int = 1200, batch_per_device: int = 262144,
                        device=None) -> dict:
     """One family's goal block (numpy (G, 4)) solved in chunks of
     ``batch_per_device`` goals on one device, with each chunk's copy back
-    to the host overlapped with the next chunk's solve. Returns the table
-    columns as numpy arrays: {speed, steer, converged} (G,); the full
-    control plans stay on the device."""
+    to the host overlapped with the next chunk's solve; the family's
+    matrices are built once for all chunks. Returns the table columns as
+    numpy arrays: {speed, steer, converged} (G,); the full control plans
+    stay on the device."""
     from irbfn_tpu_torch.parallel.datagen import solve_lattice
 
-    def fn(g, v):
-        sol = solve_goal_family(v, g, cfg, iters=iters)
-        return {"speed": sol.speed, "steer": sol.steer,
-                "converged": sol.converged}
-
-    return solve_lattice(fn, goals, batch_per_device=batch_per_device,
-                         args=(float(v_car),), device=device)
+    return solve_lattice(_lattice_chunk_fn(float(v_car), cfg, iters), goals,
+                         batch_per_device=batch_per_device, device=device)
 
 
 def solve_goal_lattice_sharded(v_car, goals,
@@ -304,21 +335,16 @@ def solve_goal_lattice_sharded(v_car, goals,
     """``solve_goal_lattice`` across the mesh's data axis
     (``parallel/datagen.py:solve_lattice_sharded``): each rank solves its
     ``batch_per_device`` goals of every chunk, one ADMM launch of the family
-    variant, with the family operands its own; no collective runs inside
-    the sweeps. The table columns {speed, steer, converged} (G,) are
-    gathered, so that every rank returns all of them; at one rank they are
-    ``solve_goal_lattice``'s bit for bit."""
+    variant, with the family operands its own, built once a call; no
+    collective runs inside the sweeps. The table columns {speed, steer,
+    converged} (G,) are gathered, so that every rank returns all of them;
+    at one rank they are ``solve_goal_lattice``'s bit for bit."""
     from irbfn_tpu_torch.parallel.datagen import solve_lattice_sharded
 
-    def fn(g, v):
-        sol = solve_goal_family(v, g, cfg, iters=iters)
-        return {"speed": sol.speed, "steer": sol.steer,
-                "converged": sol.converged}
-
-    return solve_lattice_sharded(fn, goals, mesh=mesh,
+    return solve_lattice_sharded(_lattice_chunk_fn(float(v_car), cfg, iters),
+                                 goals, mesh=mesh,
                                  batch_per_device=batch_per_device,
-                                 progress=progress, args=(float(v_car),),
-                                 device=device)
+                                 progress=progress, device=device)
 
 
 def solve_tracking_mpc(x0, ref_traj, path_predict,

@@ -14,7 +14,9 @@ import torch
 from irbfn_tpu_torch.ops import admm
 from irbfn_tpu_torch.parallel import datagen, launch
 from irbfn_tpu_torch.solvers import nmpc
-from irbfn_tpu_torch.solvers.goal_mpc import GoalMPCConfig, solve_goal_lattice
+from irbfn_tpu_torch.solvers.goal_mpc import (GoalMPCConfig,
+                                              solve_goal_family,
+                                              solve_goal_lattice)
 from irbfn_tpu_torch.utils import spans
 
 
@@ -31,6 +33,16 @@ def tracing():
 
 def _delta(before: dict, name: str) -> int:
     return spans.counters().get(name, 0) - before.get(name, 0)
+
+
+def _assert_same(a, b):
+    """Equal arrays, or dicts of them, dtypes included."""
+    if not isinstance(a, dict):
+        a, b = {"": a}, {"": b}
+    assert set(a) == set(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_off_reads_no_clock_and_opens_no_range(monkeypatch):
@@ -172,16 +184,45 @@ def test_solve_lattice_records_every_chunk(tracing):
     assert _delta(before, "lattice.h2d_bytes") == 0
 
 
-def test_goal_lattice_operands_inside_the_chunks_solve(tracing):
-    goals = np.random.default_rng(0).uniform(
+def _goal_block(n=10):
+    return np.random.default_rng(0).uniform(
         [-1.0, 0.0, -1.0, -3.0], [4.0, 4.0, 8.0, 3.0],
-        (10, 4)).astype(np.float32)
-    solve_goal_lattice(2.0, goals, GoalMPCConfig(), iters=5,
-                       batch_per_device=4, device="cpu")
+        (n, 4)).astype(np.float32)
+
+
+def test_goal_lattice_operands_inside_the_chunks_solve(tracing):
+    """The family's operands are built once a family call, at its first
+    chunk, inside that chunk's ``lattice.solve``: two families of three
+    chunks open two ``goal.operands`` spans."""
+    goals = _goal_block()
+    for v in (2.0, 3.0):
+        solve_goal_lattice(v, goals, GoalMPCConfig(), iters=5,
+                           batch_per_device=4, device="cpu")
     recs = spans.records()
     ops = [r for r in recs if r["name"] == "goal.operands"]
-    assert [r["chunk"] for r in ops] == [0, 1, 2]
+    assert [(r["family"], r["chunk"]) for r in ops] == [(0, 0), (1, 0)]
     assert all(recs[r["parent"]]["name"] == "lattice.solve" for r in ops)
+    assert len([r for r in recs if r["name"] == "lattice.solve"]) == 6
+
+
+def test_goal_operand_builds_count_one_per_family():
+    """Three families of three chunks (the last one ragged): three builds
+    of the family's operands, nine chunks, and every family's columns bit
+    for bit ``solve_goal_family`` chunk by chunk, concatenated."""
+    goals = _goal_block()
+    cfg = GoalMPCConfig()
+    before = spans.counters()
+    outs = {v: solve_goal_lattice(v, goals, cfg, iters=20,
+                                  batch_per_device=4, device="cpu")
+            for v in (0.5, 2.0, 4.0)}
+    assert _delta(before, "goal.operand_builds") == 3
+    assert _delta(before, "lattice.chunks") == 9
+    for v, out in outs.items():
+        parts = [solve_goal_family(v, torch.from_numpy(goals[s:s + 4]), cfg,
+                                   iters=20) for s in range(0, 10, 4)]
+        _assert_same(out, {k: np.concatenate([getattr(p, k).numpy()
+                                              for p in parts])
+                           for k in ("speed", "steer", "converged")})
 
 
 def _sharded_rank(rows, bpd):
@@ -216,6 +257,96 @@ def test_sharded_lattice_counts_the_split(tmp_path):
         assert [c for n, c in recs if n == "lattice.gather"] == [0, 1]
     assert per_rank[0][1]["lattice.pad_rows"] == 0
     assert per_rank[1][1]["lattice.pad_rows"] == 3
+
+
+def _rows(n: int) -> np.ndarray:
+    return (10 * np.random.default_rng(n).normal(size=(n, 2))).astype(
+        np.float32)
+
+
+def _columns_fn(r):
+    """A solver with a float, a bool and a 2-D column."""
+    return {"s": r.sum(-1), "b": r[:, 0] > 0,
+            "w": torch.stack([r[:, 1], r[:, 0] * 2, r.sum(-1)], -1)}
+
+
+def _bare_fn(r):
+    return r[:, 0] - r[:, 1]
+
+
+def _chunked(fn, rows, bpd):
+    """The plain composition: ``fn`` on each chunk of ``bpd`` rows, the
+    chunks' results concatenated."""
+    outs = [fn(torch.from_numpy(rows[s:s + bpd]))
+            for s in range(0, rows.shape[0], bpd)]
+    if torch.is_tensor(outs[0]):
+        return np.concatenate([o.numpy() for o in outs])
+    return {k: np.concatenate([o[k].numpy() for o in outs]) for k in outs[0]}
+
+
+SOLVES = {"solve_lattice": datagen.solve_lattice,
+          "sharded": datagen.solve_lattice_sharded}
+
+
+@pytest.mark.parametrize("n, bpd", [(14, 4), (12, 4), (3, 8)])
+@pytest.mark.parametrize("path, fn", [("solve_lattice", _columns_fn),
+                                      ("sharded", _columns_fn),
+                                      ("sharded", _bare_fn)])
+def test_columns_are_the_chunks_concatenated(path, fn, n, bpd):
+    """The columns each chunk's results were copied into are, bit for bit,
+    the chunks' results concatenated: a ragged last chunk, whole chunks
+    and one short chunk; a dict of float, bool and 2-D columns, and on
+    the sharded path (a world of one) a bare tensor."""
+    rows = _rows(n)
+    out = SOLVES[path](fn, rows, batch_per_device=bpd, device="cpu")
+    _assert_same(out, _chunked(fn, rows, bpd))
+
+
+@pytest.mark.parametrize("path", list(SOLVES))
+def test_a_second_call_leaves_the_first_calls_columns(path):
+    """The columns are new on every call: the arrays a call returned keep
+    their values through the next call."""
+    rows = _rows(14)
+    first = SOLVES[path](_columns_fn, rows, batch_per_device=4, device="cpu")
+    kept = {k: v.copy() for k, v in first.items()}
+    second = SOLVES[path](_columns_fn, 3 * rows[::-1] + 1,
+                          batch_per_device=4, device="cpu")
+    _assert_same(first, kept)
+    assert not np.array_equal(first["s"], second["s"])
+
+
+# (rows, rows a block) on four ranks: chunks of (4, 4, 2, 0) rows, the last
+# rank's block empty; and (16 rows; 4, 4, 4, 1), a ragged last chunk
+FOUR_RANK_CASES = [(10, 4), (29, 4)]
+
+
+def _four_rank_columns():
+    return [(datagen.solve_lattice_sharded(_columns_fn, _rows(n),
+                                           batch_per_device=bpd,
+                                           device="cpu"),
+             datagen.solve_lattice_sharded(_bare_fn, _rows(n),
+                                           batch_per_device=bpd,
+                                           device="cpu"))
+            for n, bpd in FOUR_RANK_CASES]
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    return launch.spawn(_four_rank_columns, 4, "cpu",
+                        store_dir=tmp_path_factory.mktemp("four"))
+
+
+@pytest.mark.parametrize("case", range(len(FOUR_RANK_CASES)))
+def test_four_ranks_fill_the_columns_with_every_block(four_ranks, case):
+    """Four gloo ranks: every rank's columns are every rank's blocks,
+    each written into its rows, bit for bit the chunks concatenated, for a
+    dict of float, bool and 2-D columns and for a bare tensor."""
+    n, bpd = FOUR_RANK_CASES[case]
+    rows = _rows(n)
+    for per_rank in four_ranks:
+        cols, bare = per_rank[case]
+        _assert_same(cols, _chunked(_columns_fn, rows, bpd))
+        _assert_same(bare, _chunked(_bare_fn, rows, bpd))
 
 
 class _FakeStream:
