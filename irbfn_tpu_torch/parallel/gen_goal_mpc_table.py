@@ -15,7 +15,8 @@ grid metadata ``lows``, ``highs``, ``nums`` and ``dims``.
 The run ends with what the lattice pipeline moved on this rank, from the
 counters of ``utils/spans.py``: families, real rows, chunks, the bytes
 staged through pinned memory and copied each way, and on a mesh the padding
-rows and the bytes the gathers received.
+rows and the bytes the gathers received; then the families' operand builds,
+and on a card the CUDA graph captures and replays that served them.
 
 Under ``torchrun`` (``WORLD_SIZE`` set) every process is one rank of a
 process group read from the environment, one card each: the lattice splits
@@ -120,6 +121,9 @@ def solve_table(args) -> dict:
     moved = spans.since(before, "lattice.")
     print("pipeline on this rank: " + ", ".join(
         f"{k[len('lattice.'):]} {v:,}" for k, v in moved.items()), flush=True)
+    print("operands on this rank: " + ", ".join(
+        f"{k[len('goal.'):]} {v:,}"
+        for k, v in spans.since(before, "goal.").items()), flush=True)
     return dict(grid=grid, goals_raw=goals_raw, speed=speed, steer=steer,
                 valid=valid, seconds=seconds, pipeline=moved)
 

@@ -27,7 +27,9 @@ and its sweeps are the same ``admm_solve`` launch.
 
 from __future__ import annotations
 
+import collections
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -201,11 +203,124 @@ def _family_matrices(v_car, cfg, sigma, dtype, device):
     """What every goal of a family shares, for v_car of shape ``batch``:
     the family's matrices, the speed-scaled rho and the KKT inverse.
 
+    On a card the build (~136 small launches) is one CUDA graph a (cfg,
+    sigma, dtype, device, batch shape), kept in ``_OPERAND_GRAPHS``: the
+    first call at a key captures it and answers with the eager build, every
+    later call replays it (``_OperandGraph``). Elsewhere the build runs
+    eagerly. Both run the same kernels, so both give the same bits.
+    """
+    spans.count("goal.operand_builds")
+    device = resolve_device(device)
+    if not _graphed(device):
+        return _build_matrices(v_car, cfg, sigma, dtype, device)
+    if device.index is None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (cfg, float(sigma), dtype, device, tuple(np.shape(v_car)))
+    graph = _OPERAND_GRAPHS.get(key)
+    if graph is None:
+        spans.count("goal.operand_graph_captures")
+        _OPERAND_GRAPHS.put(key, _OperandGraph(*key))
+        return _build_matrices(v_car, cfg, sigma, dtype, device)
+    spans.count("goal.operand_graph_replays")
+    return graph(v_car)
+
+
+def _graphed(device) -> bool:
+    """Whether ``_family_matrices`` replays a graph: on a card."""
+    return device.type == "cuda"
+
+
+class _GraphCache:
+    """The last ``size`` operand graphs used, by key (least recently used
+    out first)."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._graphs = collections.OrderedDict()
+
+    def get(self, key):
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+        return graph
+
+    def put(self, key, graph) -> None:
+        self._graphs[key] = graph
+        if len(self._graphs) > self.size:
+            self._graphs.popitem(last=False)
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+
+_OPERAND_GRAPHS = _GraphCache(8)
+
+
+class _OperandGraph:
+    """``_build_matrices`` at one key, captured once as one CUDA graph.
+
+    Set-up warms the build up on a side stream, then captures it on that
+    stream (``capture_error_mode="thread_local"``: on a mesh, NCCL's
+    watchdog thread queries events during the capture). Every graph of a
+    device is captured on one stream, ``_capture_stream``: cuBLAS keeps a
+    workspace a stream (32 MiB on an H100) for as long as the process
+    lives, and the graphs' products use it. The graph reads v from a
+    static input and writes every output into one flat buffer, each part
+    at a 512-byte boundary. A call writes v into the input (``fill_`` or
+    ``copy_``: no host copy of a number, no wait), replays the graph on the
+    caller's stream and clones the flat buffer once: the tensors it returns
+    are views of that clone, so a later replay leaves them as they were.
+    Calls are ordered by the caller's stream, as eager launches are."""
+
+    def __init__(self, cfg, sigma, dtype, device, shape):
+        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        align = 512 // self.v.element_size()
+        with torch.cuda.device(device), torch.no_grad():
+            stream = _capture_stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                _build_matrices(self.v, cfg, sigma, dtype, device)
+            torch.cuda.current_stream(device).wait_stream(stream)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                fam, rho, kinv = _build_matrices(self.v, cfg, sigma, dtype,
+                                                 device)
+                parts = (*fam, rho, kinv)
+                self.layout, n = [], 0
+                for t in parts:
+                    self.layout.append((n, t.shape))
+                    n += -(-t.numel() // align) * align
+                self.flat = torch.empty(n, dtype=dtype, device=device)
+                for (at, shape), t in zip(self.layout, parts):
+                    self.flat[at:at + t.numel()].view(shape).copy_(t)
+
+    def __call__(self, v_car):
+        if torch.is_tensor(v_car) or isinstance(v_car, np.ndarray):
+            self.v.copy_(torch.as_tensor(v_car))
+        else:
+            self.v.fill_(float(v_car))
+        self.graph.replay()
+        flat = self.flat.clone()
+        out = [flat[at:at + math.prod(shape)].view(shape)
+               for at, shape in self.layout]
+        return GoalQPFamily(*out[:-2]), out[-2], out[-1]
+
+
+@functools.cache
+def _capture_stream(device) -> torch.cuda.Stream:
+    """The side stream on which every operand graph of ``device`` is
+    warmed up and captured."""
+    return torch.cuda.Stream(device)
+
+
+def _build_matrices(v_car, cfg, sigma, dtype, device):
+    """``_family_matrices`` as eager launches.
+
     rho law: in unit-row constraint coordinates with over-relaxation
     alpha = 1.6, rho grows with the linearization speed as max(1, |v|/2)
     (P's yaw-coupling curvature scales ~v^2).
     """
-    spans.count("goal.operand_builds")
     fam = condensed_family(v_car, cfg, dtype, device)
     v = _as_speed(v_car, dtype, device)
     rho = torch.clamp(v.abs() * 0.5, min=1.0)

@@ -13,7 +13,7 @@ import torch
 
 from irbfn_tpu_torch.ops import admm
 from irbfn_tpu_torch.parallel import datagen, launch
-from irbfn_tpu_torch.solvers import nmpc
+from irbfn_tpu_torch.solvers import goal_mpc, nmpc
 from irbfn_tpu_torch.solvers.goal_mpc import (GoalMPCConfig,
                                               solve_goal_family,
                                               solve_goal_lattice)
@@ -135,7 +135,8 @@ def test_counters_add_and_snapshot():
 def test_the_table_generator_prints_what_the_pipeline_moved(capsys):
     """``gen_goal_mpc_table`` ends with the ``lattice.`` counters that moved
     on this rank: families, rows and chunks of a tiny CPU grid (3 families
-    of 36 goals in chunks of 8: 5 chunks a family)."""
+    of 36 goals in chunks of 8: 5 chunks a family), then the ``goal.``
+    counters: one operand build a family, no graph on the CPU."""
     from irbfn_tpu_torch.parallel import gen_goal_mpc_table as gen
 
     args = gen.parse_args(
@@ -151,8 +152,9 @@ def test_the_table_generator_prints_what_the_pipeline_moved(capsys):
     assert res["pipeline"] == {"lattice.chunks": 3 * 5,
                                "lattice.families": 3,
                                "lattice.rows": 3 * G}
-    line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert line == "pipeline on this rank: chunks 15, families 3, rows 108"
+    lines = capsys.readouterr().out.strip().splitlines()[-2:]
+    assert lines == ["pipeline on this rank: chunks 15, families 3, rows 108",
+                     "operands on this rank: operand_builds 3"]
 
 
 def test_solve_lattice_records_every_chunk(tracing):
@@ -223,6 +225,91 @@ def test_goal_operand_builds_count_one_per_family():
         _assert_same(out, {k: np.concatenate([getattr(p, k).numpy()
                                               for p in parts])
                            for k in ("speed", "steer", "converged")})
+
+
+@pytest.mark.parametrize("v", [2.5, torch.tensor([-1.0, 0.0, 3.5, 8.0])])
+def test_operand_build_on_the_cpu_is_eager(v):
+    """Off the card ``_family_matrices`` runs the eager build: one build a
+    call, no graph captured, kept or replayed, and its outputs are
+    ``condensed_family``'s, rho and the KKT inverse, as before the graph."""
+    cfg = GoalMPCConfig()
+    before = spans.counters()
+    kept = len(goal_mpc._OPERAND_GRAPHS)
+    fam, rho, kinv = goal_mpc._family_matrices(v, cfg, 1e-6, torch.float64,
+                                               torch.device("cpu"))
+    assert _delta(before, "goal.operand_builds") == 1
+    assert _delta(before, "goal.operand_graph_captures") == 0
+    assert _delta(before, "goal.operand_graph_replays") == 0
+    assert len(goal_mpc._OPERAND_GRAPHS) == kept
+    ref = goal_mpc.condensed_family(v, cfg, torch.float64, "cpu")
+    for a, b in zip(fam, ref):
+        assert torch.equal(a, b)
+    speed = torch.as_tensor(v, dtype=torch.float64)
+    assert torch.equal(rho, torch.clamp(speed.abs() * 0.5, min=1.0))
+    eye = torch.eye(16, dtype=torch.float64)
+    kkt = ref.P + 1e-6 * eye + rho[..., None, None] * (
+        ref.A_con.transpose(-1, -2) @ ref.A_con)
+    torch.testing.assert_close(kinv @ kkt, eye.expand(kkt.shape),
+                               rtol=0, atol=1e-9)
+
+
+class _StubGraph:
+    """Stands in for ``_OperandGraph`` off the card: records its key and
+    answers with the eager build."""
+
+    def __init__(self, *key):
+        self.key = key
+        self.made.append(key)
+
+    def __call__(self, v_car):
+        return goal_mpc._build_matrices(v_car, *self.key[:4])
+
+
+def test_operand_graph_cache_keys_and_bound(monkeypatch):
+    """One graph a (cfg, sigma, dtype, device, batch shape): a key's first
+    call captures and builds eagerly, a later call replays; the cache keeps
+    the 8 keys used last, so an evicted key captures again."""
+    monkeypatch.setattr(goal_mpc, "_OperandGraph", _StubGraph)
+    monkeypatch.setattr(goal_mpc, "_graphed", lambda device: True)
+    monkeypatch.setattr(goal_mpc, "_OPERAND_GRAPHS", goal_mpc._GraphCache(8))
+    monkeypatch.setattr(_StubGraph, "made", [], raising=False)
+    cfg, cpu, f32 = GoalMPCConfig(), torch.device("cpu"), torch.float32
+    before = spans.counters()
+
+    def build(v, sigma=1e-6, dtype=f32, c=cfg):
+        out = goal_mpc._family_matrices(v, c, sigma, dtype, cpu)
+        ref = goal_mpc._build_matrices(v, c, sigma, dtype, cpu)
+        for a, b in zip((*out[0], *out[1:]), (*ref[0], *ref[1:])):
+            assert torch.equal(a, b)
+
+    def moved():
+        return (_delta(before, "goal.operand_graph_captures"),
+                _delta(before, "goal.operand_graph_replays"))
+
+    build(torch.tensor([2.0]))
+    assert moved() == (1, 0)
+    assert _StubGraph.made == [(cfg, 1e-6, f32, cpu, (1,))]
+    build(torch.tensor([3.0]))
+    assert moved() == (1, 1)
+    build(torch.tensor([1.0, 2.0, 3.0]))  # another shape
+    build(torch.tensor([2.0]), dtype=torch.float64)  # another dtype
+    build(torch.tensor([2.0]), sigma=1e-5)  # another sigma
+    build(2.0)  # a number: batch ()
+    build(torch.tensor([2.0]), c=cfg._replace(r_steer=4.0))  # another cfg
+    build(torch.zeros(2))
+    assert moved() == (7, 1)
+    assert len(goal_mpc._OPERAND_GRAPHS) == 7
+    build(torch.zeros(4))
+    assert len(goal_mpc._OPERAND_GRAPHS) == 8
+    build(torch.tensor([5.0]))  # the first key, used again
+    assert moved() == (8, 2)
+    build(torch.zeros(6))  # a ninth key evicts the least recently used
+    assert len(goal_mpc._OPERAND_GRAPHS) == 8
+    build(torch.tensor([1.0, 2.0, 3.0]))  # the (3,) key: captured again
+    build(torch.tensor([-1.0]))  # still kept
+    assert moved() == (10, 3)
+    assert [k[4] for k in _StubGraph.made].count((3,)) == 2
+    assert _delta(before, "goal.operand_builds") == 13
 
 
 def _sharded_rank(rows, bpd):
