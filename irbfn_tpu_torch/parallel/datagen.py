@@ -2,17 +2,18 @@
 
 Port of ``irbfn_tpu/parallel/datagen.py``: a grid spec becomes meshgrid
 rows ('ij' order, so the table layout matches the reference's), and
-``solve_lattice`` runs a batched solver over them in chunks on one device;
-``solve_lattice_sharded`` splits every chunk over the ranks of the data axis
-(``parallel/mesh.py``) and ``all_gather``s the results, so that every rank
-returns the whole table. A call's host work is done once, not once a
-chunk: the first chunk's result allocates the table's columns (pinned on
-the card), and each chunk's results are copied into their rows while the
-next chunk is already queued, so the device waits neither for those copies
-nor for a concatenation; the chunks' rows reach the card through pinned
-staging buffers that every call reuses. Each family call, and each chunk's
-staging, solve, gather, copy back and drain, is a span of
-``utils/spans.py`` (``lattice.*``), with its rows and bytes counted there.
+``solve_lattice_sharded`` runs a batched solver over them in chunks, each
+chunk split over the ranks of the data axis (``parallel/mesh.py``) and its
+results ``all_gather``ed, so that every rank returns the whole table;
+``solve_lattice`` is that loop on a world of one, on one device. A call's
+host work is done once, not once a chunk: the first chunk's result
+allocates the table's columns (pinned on the card), and each chunk's
+results are copied into their rows while the next chunk is already queued,
+so the device waits neither for those copies nor for a concatenation; the
+chunks' rows reach the card through pinned staging buffers that every call
+reuses. Each family call, and each chunk's staging, solve, gather, copy
+back and drain, is a span of ``utils/spans.py`` (``lattice.*``), with its
+rows and bytes counted there.
 ``controls_block`` flattens a table's control sequences into the layout the
 nets are trained on.
 ``TableSolution`` is what a table keeps of an NMPC solution, and
@@ -22,6 +23,7 @@ nets are trained on.
 from __future__ import annotations
 
 import collections
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Sequence
 
@@ -30,6 +32,8 @@ import torch
 import torch.distributed as dist
 
 from irbfn_tpu_torch._device import resolve_device
+from irbfn_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS, Mesh,
+                                           make_mesh)
 from irbfn_tpu_torch.utils import spans
 
 # chunks whose results may still be on their way to the host when the next
@@ -138,12 +142,12 @@ class _HostPipeline:
         if self.progress_fn is not None:
             self.progress_fn(done)
 
-    def result(self, name: str) -> dict:
+    def result(self) -> dict:
         with spans.span("lattice.assemble"):
             while self.inflight:
                 self._drain_one()
             if self.cols is None:
-                raise ValueError(f"{name} needs at least one row")
+                raise ValueError("a lattice needs at least one row")
             return {k: c.numpy() for k, c in self.cols.items()}
 
 
@@ -203,31 +207,15 @@ def _solve_chunk(solve_fn, rows: torch.Tensor, args, chunk: int):
 def solve_lattice(solve_fn: Callable, rows: np.ndarray,
                   batch_per_device: int = 65536, args=(),
                   device=None) -> dict:
-    """Run ``solve_fn`` over a lattice in chunks on one device.
-
-    Args:
-        solve_fn: maps ``(B, D)`` row tensors (plus ``*args``) to a dict of
-            ``(B, ...)`` tensors on the rows' device.
-        rows: the full lattice ``(N, D)``, numpy.
-        batch_per_device: rows per chunk; bounds the device memory of
-            lattices of hundreds of millions of rows.
-        args: extra operands passed through to ``solve_fn``.
-        device: where the solve runs (None: the card).
-    Returns:
-        dict of numpy arrays with leading dim N.
+    """Run ``solve_fn`` over a lattice in chunks on one device (None: the
+    card): the loop of ``solve_lattice_sharded``, with the same arguments,
+    on a world of one on ``device``, whatever process group exists, so
+    that no collective runs. ``solve_fn`` returns a dict of ``(B, ...)``
+    tensors; the result is a dict of numpy arrays with leading dim N.
     """
-    device = resolve_device(device)
-    n = rows.shape[0]
-    capacity = min(batch_per_device, n)
-    with spans.span(spans.FAMILY):
-        spans.count("lattice.families")
-        pipe = _HostPipeline(n)
-        for c, start in enumerate(range(0, n, batch_per_device)):
-            part = rows[start:start + batch_per_device]
-            chunk = _to_device(part, device, c, part.shape[0], capacity)
-            pipe.put(_solve_chunk(solve_fn, chunk, args, c), start,
-                     start + part.shape[0], c)
-        return pipe.result("solve_lattice")
+    mesh = Mesh(resolve_device(device), {DATA_AXIS: 1, EXPERT_AXIS: 1}, 0)
+    return solve_lattice_sharded(solve_fn, rows, mesh, batch_per_device,
+                                 args=args)
 
 
 def _gather_rows(t: torch.Tensor, sizes, group) -> list:
@@ -257,11 +245,11 @@ def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
     chunk (``P(DATA_AXIS)``; the ranks of one expert group solve the same
     rows), and the results are ``all_gather``ed over the data axis, so that
     every rank returns the whole table in row order (``out_shardings`` =
-    replicated). Rank i's block of chunk c is block ``c*D + i`` of
-    ``solve_lattice`` at the same ``batch_per_device``: the same rows go to
-    the same solver, and at D = 1 the result is ``solve_lattice``'s bit for
-    bit. A rank whose block of the last chunk is empty solves the last row
-    alone and sends nothing of it.
+    replicated). Rank i's block of chunk c is block ``c*D + i`` of the
+    one-device solve at the same ``batch_per_device``: the same rows go to
+    the same solver. This is the only chunk loop: ``solve_lattice`` is its
+    world of one. A rank whose block of the last chunk is empty solves the
+    last row alone and sends nothing of it.
 
     Args:
         solve_fn: maps ``(B, D)`` row tensors (plus ``*args``) to a dict of
@@ -277,10 +265,6 @@ def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
         dict of numpy arrays with leading dim N, or one array if
         ``solve_fn`` returns a tensor.
     """
-    import time
-
-    from irbfn_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
-
     if mesh is None:
         mesh = make_mesh(expert=1, device=device)
     device = mesh.device if device is None else resolve_device(device)
@@ -319,7 +303,7 @@ def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
                     result = {k: _gather_rows(v, sizes, group)
                               for k, v in result.items()}
             pipe.put(result, start, start + sum(sizes), c)
-        out = pipe.result("solve_lattice_sharded")
+        out = pipe.result()
     return out[""] if bare else out
 
 

@@ -21,7 +21,8 @@ them with the unsharded results. A job is a tuple:
   goal family and, on the same rank, ``solve_goal_lattice``;
 - ``("clothoid_lattice", goals, batch_per_device)``: the G1 clothoid solve
   of a lattice through ``solve_lattice_sharded`` (a solver that returns one
-  tensor) and through ``solve_lattice``.
+  tensor) and through ``solve_lattice``;
+  both with what each call moved of the ``lattice.`` counters (``moved``).
 
 A case is a dict: ``config`` (the checkpoint config of the model),
 ``state`` (its numpy ``state_dict``), ``x``, ``y`` and ``extra`` (numpy;
@@ -38,6 +39,7 @@ import torch.distributed as dist
 from irbfn_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
                                            data_sharding, make_mesh,
                                            shard_params)
+from irbfn_tpu_torch.utils import spans
 
 
 def _device():
@@ -139,16 +141,28 @@ def _epochs_job(meshes, case, data, expert, batch_size, epochs):
                        for n, p in model.named_parameters()}}
 
 
+def _lattice_calls(**calls) -> dict:
+    """Each call's result by name, and under ``moved`` what each call moved
+    of the ``lattice.`` counters."""
+    out = {"moved": {}}
+    for name, call in calls.items():
+        before = spans.counters()
+        out[name] = call()
+        out["moved"][name] = spans.since(before, "lattice.")
+    return out
+
+
 def _goal_lattice_job(meshes, v_car, goals, iters, batch_per_device):
     from irbfn_tpu_torch.solvers.goal_mpc import (solve_goal_lattice,
                                                   solve_goal_lattice_sharded)
 
     mesh = meshes(1)
     kw = dict(iters=iters, batch_per_device=batch_per_device)
-    return {"sharded": solve_goal_lattice_sharded(v_car, goals, mesh=mesh,
-                                                  **kw),
-            "direct": solve_goal_lattice(v_car, goals, device=mesh.device,
-                                         **kw)}
+    return _lattice_calls(
+        sharded=lambda: solve_goal_lattice_sharded(v_car, goals, mesh=mesh,
+                                                   **kw),
+        direct=lambda: solve_goal_lattice(v_car, goals, device=mesh.device,
+                                          **kw))
 
 
 def _clothoid_lattice_job(meshes, goals, batch_per_device):
@@ -157,12 +171,13 @@ def _clothoid_lattice_job(meshes, goals, batch_per_device):
     from irbfn_tpu_torch.solvers.clothoid import solve_g1_lattice
 
     mesh = meshes(1)
-    device = mesh.device
-    sharded = solve_lattice_sharded(solve_g1_lattice, goals, mesh=mesh,
-                                    batch_per_device=batch_per_device)
-    direct = solve_lattice(lambda r: {"p": solve_g1_lattice(r)}, goals,
-                           batch_per_device=batch_per_device, device=device)
-    return {"sharded": sharded, "direct": direct["p"]}
+    return _lattice_calls(
+        sharded=lambda: solve_lattice_sharded(
+            solve_g1_lattice, goals, mesh=mesh,
+            batch_per_device=batch_per_device),
+        direct=lambda: solve_lattice(
+            lambda r: {"p": solve_g1_lattice(r)}, goals,
+            batch_per_device=batch_per_device, device=mesh.device)["p"])
 
 
 JOBS = {"mesh": _mesh_job, "forward": _forward_job, "step": _step_job,

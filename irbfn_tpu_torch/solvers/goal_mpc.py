@@ -207,22 +207,24 @@ def _family_matrices(v_car, cfg, sigma, dtype, device):
     sigma, dtype, device, batch shape), kept in ``_OPERAND_GRAPHS``: the
     first call at a key captures it and answers with the eager build, every
     later call replays it (``_OperandGraph``). Elsewhere the build runs
-    eagerly. Both run the same kernels, so both give the same bits.
+    eagerly. Both run the same kernels, so both give the same bits. Every
+    call is one ``goal.operands`` span and one ``goal.operand_builds``.
     """
-    spans.count("goal.operand_builds")
-    device = resolve_device(device)
-    if not _graphed(device):
-        return _build_matrices(v_car, cfg, sigma, dtype, device)
-    if device.index is None and device.type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
-    key = (cfg, float(sigma), dtype, device, tuple(np.shape(v_car)))
-    graph = _OPERAND_GRAPHS.get(key)
-    if graph is None:
-        spans.count("goal.operand_graph_captures")
-        _OPERAND_GRAPHS.put(key, _OperandGraph(*key))
-        return _build_matrices(v_car, cfg, sigma, dtype, device)
-    spans.count("goal.operand_graph_replays")
-    return graph(v_car)
+    with spans.span("goal.operands"):
+        spans.count("goal.operand_builds")
+        device = resolve_device(device)
+        if not _graphed(device):
+            return _build_matrices(v_car, cfg, sigma, dtype, device)
+        if device.index is None and device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (cfg, float(sigma), dtype, device, tuple(np.shape(v_car)))
+        graph = _OPERAND_GRAPHS.get(key)
+        if graph is None:
+            spans.count("goal.operand_graph_captures")
+            _OPERAND_GRAPHS.put(key, _OperandGraph(*key))
+            return _build_matrices(v_car, cfg, sigma, dtype, device)
+        spans.count("goal.operand_graph_replays")
+        return graph(v_car)
 
 
 def _graphed(device) -> bool:
@@ -351,9 +353,7 @@ def _solve_families(v, goals, cfg, iters, sigma, tol,
     """v (F,), goals (F, G, 4) -> a solution of shape (F, G); the families'
     ``_family_matrices`` are built here unless ``matrices`` holds them."""
     if matrices is None:
-        with spans.span("goal.operands"):
-            matrices = _family_matrices(v, cfg, sigma, goals.dtype,
-                                        goals.device)
+        matrices = _family_matrices(v, cfg, sigma, goals.dtype, goals.device)
     fam, rho, kinv = matrices
     q = _goal_vector(fam, goals, cfg)
     x, r_prim, r_dual = admm_solve(q.contiguous(), fam.A_con.contiguous(),
@@ -416,9 +416,8 @@ def _lattice_chunk_fn(v_car, cfg: GoalMPCConfig, iters: int):
     def fn(g):
         if not family:
             v = _as_speed(v_car, g.dtype, g.device).reshape(1)
-            with spans.span("goal.operands"):
-                family.append((v, _family_matrices(v, cfg, 1e-6, g.dtype,
-                                                   g.device)))
+            family.append((v, _family_matrices(v, cfg, 1e-6, g.dtype,
+                                               g.device)))
         v, matrices = family[0]
         sol = _solve_families(v, g[None], cfg, iters, 1e-6, 2e-3, matrices)
         return {"speed": sol.speed[0], "steer": sol.steer[0],

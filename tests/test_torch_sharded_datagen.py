@@ -12,7 +12,8 @@ vs its one-device solve and the JAX package's sharded solves.
 - Worlds 2 and 3 (one gloo spawn each; world 3 leaves the last rank an
   empty block of the last chunk): on every rank, the whole table, equal to
   ``solve_lattice`` at the same ``batch_per_device`` on that rank, in f32
-  and f64; the goal family in f64 within ``tests/test_goal_mpc.py::
+  and f64, whose call gathers nothing while the sharded one does; the
+  goal family in f64 within ``tests/test_goal_mpc.py::
   test_goal_lattice_sharded_matches_direct``'s atol 1e-6 of JAX's
   ``solve_goal_lattice_sharded`` on the 8-device mesh, with equal
   ``converged`` (in f32 two packages' ADMM sums differ by their order over
@@ -191,3 +192,8 @@ def test_torch_sharded_lattices_across_ranks(world, tmp_path, jax_goal,
                                       clothoid["direct"])
         np.testing.assert_allclose(clothoid["sharded"], jax_clothoid,
                                    rtol=1e-10, atol=1e-12)
+        for job in (goal, goal64, clothoid):
+            # the direct solve is a world of one inside the process group
+            assert not {"lattice.gather_bytes", "lattice.pad_rows"} & set(
+                job["moved"]["direct"]), (rank, job["moved"])
+            assert job["moved"]["sharded"]["lattice.gather_bytes"] > 0
