@@ -3,17 +3,17 @@
 Port of ``irbfn_tpu/parallel/datagen.py``: a grid spec becomes meshgrid
 rows ('ij' order, so the table layout matches the reference's), and
 ``solve_lattice_sharded`` runs a batched solver over them in chunks, each
-chunk split over the ranks of the data axis (``parallel/mesh.py``) and its
-results ``all_gather``ed, so that every rank returns the whole table;
-``solve_lattice`` is that loop on a world of one, on one device. A call's
-host work is done once, not once a chunk: the first chunk's result
-allocates the table's columns (pinned on the card), and each chunk's
-results are copied into their rows while the next chunk is already queued,
-so the device waits neither for those copies nor for a concatenation; the
-chunks' rows reach the card through pinned staging buffers that every call
-reuses. Each family call, and each chunk's staging, solve, gather, copy
-back and drain, is a span of ``utils/spans.py`` (``lattice.*``), with its
-rows and bytes counted there.
+chunk split over the ranks of the data axis (``parallel/mesh.py``; a short
+last chunk evenly, ``_deal``) and its results ``all_gather``ed, so that
+every rank returns the whole table; ``solve_lattice`` is that loop on a
+world of one, on one device. A call's host work is done once, not once a
+chunk: the first chunk's result allocates the table's columns (pinned on
+the card), and each chunk's results are copied into their rows while the
+next chunk is already queued, so the device waits neither for those copies
+nor for a concatenation; the chunks' rows reach the card through pinned
+staging buffers that every call reuses. Each family call, and each chunk's
+staging, solve, gather, copy back and drain, is a span of
+``utils/spans.py`` (``lattice.*``), with its rows and bytes counted there.
 ``controls_block`` flattens a table's control sequences into the layout the
 nets are trained on.
 ``TableSolution`` is what a table keeps of an NMPC solution, and
@@ -218,13 +218,35 @@ def solve_lattice(solve_fn: Callable, rows: np.ndarray,
                                  args=args)
 
 
+def _deal(n: int, bpd: int, D: int) -> tuple:
+    """How a chunk of ``n`` rows goes over D data ranks: ``(sizes, tail,
+    split)``, rank j's block the ``sizes[j]`` rows after rank j-1's.
+
+    A chunk of k whole blocks of ``bpd`` rows and t rows more (t < bpd)
+    goes a block a rank, the later ranks' blocks short or empty, unless it
+    is a short last chunk (``split``) with k >= 1 and k >= D/2: then its k
+    blocks' rows go in D shares that differ by a row at most, the earlier
+    ranks taking the extra rows, and its ``tail`` of t rows goes to the
+    last rank after its share, as a solve of its own. So each share holds
+    half a block or more (on the card: the kernel variant of a whole
+    block), and the tail is solved whole, as the one-device solve's last
+    block. A world of one never splits."""
+    k, t = divmod(n, bpd)
+    if n == D * bpd or k == 0 or 2 * k < D:
+        return [min(max(n - j * bpd, 0), bpd) for j in range(D)], 0, False
+    share, extra = divmod(k * bpd, D)
+    sizes = [share + (j < extra) for j in range(D)]
+    sizes[-1] += t
+    return sizes, t, True
+
+
 def _gather_rows(t: torch.Tensor, sizes, group) -> list:
     """The data axis' blocks of one chunk, in rank order: rank j holds
     ``sizes[j]`` valid rows of ``t``. NCCL gathers equal sizes only, so
-    every block goes padded to ``sizes[0]`` (the largest) and comes back
-    trimmed, each block left where it landed for the host pipeline to copy
-    into its rows; gloo gathers no bool, so bools travel as uint8."""
-    n = sizes[0]
+    every block goes padded to the largest and comes back trimmed, each
+    block left where it landed for the host pipeline to copy into its
+    rows; gloo gathers no bool, so bools travel as uint8."""
+    n = max(sizes)
     if t.shape[0] < n:
         t = torch.cat([t, t[-1:].expand((n - t.shape[0],) + t.shape[1:])])
     send = (t.to(torch.uint8) if t.dtype == torch.bool else t).contiguous()
@@ -242,14 +264,18 @@ def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
 
     The lattice goes in chunks of ``D * batch_per_device`` rows for D ranks
     on the data axis; data rank i solves rows ``[i*bpd, (i+1)*bpd)`` of each
-    chunk (``P(DATA_AXIS)``; the ranks of one expert group solve the same
-    rows), and the results are ``all_gather``ed over the data axis, so that
-    every rank returns the whole table in row order (``out_shardings`` =
-    replicated). Rank i's block of chunk c is block ``c*D + i`` of the
-    one-device solve at the same ``batch_per_device``: the same rows go to
-    the same solver. This is the only chunk loop: ``solve_lattice`` is its
-    world of one. A rank whose block of the last chunk is empty solves the
-    last row alone and sends nothing of it.
+    whole chunk (``P(DATA_AXIS)``; the ranks of one expert group solve the
+    same rows), and the results are ``all_gather``ed over the data axis, so
+    that every rank returns the whole table in row order (``out_shardings``
+    = replicated). A short last chunk of k whole blocks of ``bpd`` rows and
+    a tail, with k >= D/2, is split evenly (``_deal``): the blocks' rows in
+    D shares of half a block or more, and the tail solved whole, on the
+    last rank, as the one-device solve's last block; any other last chunk
+    goes a block a rank, and a rank whose block is empty solves the last
+    row alone and sends nothing of it. Every row's columns are those of the
+    one-device solve at the same ``batch_per_device``, bit for bit, for a
+    ``solve_fn`` whose rows do not depend on their batch. This is the only
+    chunk loop: ``solve_lattice`` is its world of one.
 
     Args:
         solve_fn: maps ``(B, D)`` row tensors (plus ``*args``) to a dict of
@@ -285,21 +311,26 @@ def solve_lattice_sharded(solve_fn: Callable, rows: np.ndarray, mesh=None,
             n_total, report if progress and mesh.rank == 0 else None)
         bare = False
         for c, start in enumerate(range(0, n_total, D * bpd)):
-            sizes = [min(max(n_total - start - j * bpd, 0), bpd)
-                     for j in range(D)]
-            mine = rows[start + i * bpd:start + i * bpd + sizes[i]]
-            result = _solve_chunk(solve_fn, _to_device(
-                mine if sizes[i] else rows[-1:], device, c, sizes[i],
-                capacity), args, c)
-            bare = torch.is_tensor(result)
+            sizes, tail, split = _deal(min(D * bpd, n_total - start), bpd, D)
+            if split:
+                spans.count("lattice.split_rounds")
+            lo = start + sum(sizes[:i])
+            hi = lo + sizes[i]
+            cuts = [lo, hi - tail, hi] if tail and i == D - 1 else [lo, hi]
+            parts = [_solve_chunk(solve_fn, _to_device(
+                rows[a:b] if b > a else rows[-1:], device, c, b - a,
+                capacity), args, c) for a, b in zip(cuts, cuts[1:])]
+            bare = torch.is_tensor(parts[0])
             if bare:
-                result = {"": result}
+                parts = [{"": p} for p in parts]
+            result = parts[0] if len(parts) == 1 else {
+                k: torch.cat([p[k] for p in parts]) for k in parts[0]}
             if group is not None:
                 with spans.span("lattice.gather", c):
                     # the rows this rank sends that are not its own: the
                     # padding to the largest block (and an empty block's
                     # stand-in row)
-                    spans.count("lattice.pad_rows", sizes[0] - sizes[i])
+                    spans.count("lattice.pad_rows", max(sizes) - sizes[i])
                     result = {k: _gather_rows(v, sizes, group)
                               for k, v in result.items()}
             pipe.put(result, start, start + sum(sizes), c)

@@ -15,7 +15,8 @@ grid metadata ``lows``, ``highs``, ``nums`` and ``dims``.
 The run ends with what the lattice pipeline moved on this rank, from the
 counters of ``utils/spans.py``: families, real rows, chunks, the bytes
 staged through pinned memory and copied each way, and on a mesh the padding
-rows and the bytes the gathers received; then the families' operand builds,
+rows, the bytes the gathers received and the short last chunks split evenly
+over the ranks (``split_rounds``); then the families' operand builds,
 and on a card the CUDA graph captures and replays that served them.
 
 Under ``torchrun`` (``WORLD_SIZE`` set) every process is one rank of a

@@ -2,7 +2,9 @@
 the generator's 600 sweeps and 262,144-goal chunks, on a family of three
 chunks whose last is ragged (the lane variant's 20,928 goals of a default
 family's last chunk), against ``solve_goal_family`` chunk by chunk and
-``np.concatenate``, bit for bit; and what a second call pins.
+``np.concatenate``, bit for bit; what a second call pins; and the default
+family's last chunk solved as a four-rank mesh splits it, against the
+one-card solve, bit for bit.
 
 Imports no JAX, so that it runs where the card is:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_lattice_card.py``
@@ -13,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from irbfn_tpu_torch.parallel import datagen, gen_goal_mpc_table
+from irbfn_tpu_torch.solvers import goal_mpc
 from irbfn_tpu_torch.solvers.goal_mpc import (GoalMPCConfig,
                                               solve_goal_family,
                                               solve_goal_lattice)
@@ -73,3 +77,35 @@ def test_a_warm_call_pins_only_its_columns(cuda):
     solve_goal_lattice(4.0, goals, **kw)
     for k in COLUMNS:
         np.testing.assert_array_equal(first[k], kept[k], err_msg=k)
+
+
+def _default_family() -> np.ndarray:
+    """The default table's goal block, 2,642,368 goals in the generator's
+    row order, columns in the solver's (x, y, v, t)."""
+    grid = gen_goal_mpc_table.grid_from_args(
+        gen_goal_mpc_table.parse_args([]))
+    raw = datagen.build_lattice(grid[1:], dtype=np.float32)
+    return np.ascontiguousarray(raw[:, [0, 1, 3, 2]])
+
+
+def test_four_ranks_split_of_the_last_chunk_is_the_one_card_solve(cuda):
+    """The default family at v_car 4.5: the rows of its short last chunk on
+    a four-rank mesh, solved as the ranks call them (four shares of 131,072
+    goals, then the 20,928-goal tail), are ``solve_goal_lattice``'s at the
+    262,144-goal chunk, bit for bit: the family variant and the chunk's
+    goal-vector product give a row the same bits at half a chunk."""
+    goals = _default_family()
+    cfg = GoalMPCConfig()
+    one = solve_goal_lattice(4.5, goals, cfg, iters=SWEEPS,
+                             batch_per_device=CHUNK, device=cuda)
+    start = goals.shape[0] - goals.shape[0] % (4 * CHUNK)
+    sizes, tail, split = datagen._deal(goals.shape[0] - start, CHUNK, 4)
+    assert split and (sizes, tail) == ([131072] * 3 + [152000], 20928)
+    fn = goal_mpc._lattice_chunk_fn(4.5, cfg, SWEEPS)
+    cuts = start + np.cumsum([0] + sizes[:-1] + [sizes[-1] - tail, tail])
+    parts = [fn(torch.from_numpy(goals[a:b]).to(cuda))
+             for a, b in zip(cuts, cuts[1:])]
+    for k in COLUMNS:
+        got = torch.cat([p[k] for p in parts]).cpu().numpy()
+        np.testing.assert_array_equal(got, one[k][start:], err_msg=k)
+    assert one["converged"][start:].any()

@@ -13,6 +13,7 @@ import torch
 
 from irbfn_tpu_torch.ops import admm
 from irbfn_tpu_torch.parallel import datagen, launch
+from irbfn_tpu_torch.parallel.mesh import DATA_AXIS, EXPERT_AXIS, Mesh
 from irbfn_tpu_torch.solvers import goal_mpc, nmpc
 from irbfn_tpu_torch.solvers.goal_mpc import (GoalMPCConfig,
                                               solve_goal_family,
@@ -321,29 +322,106 @@ def _sharded_rank(rows, bpd):
         batch_per_device=bpd, device="cpu")
     return (out, {k: _delta(before, k) for k in
                   ("lattice.pad_rows", "lattice.rows", "lattice.gather_bytes",
-                   "lattice.chunks")},
+                   "lattice.chunks", "lattice.split_rounds")},
             [(r["name"], r["chunk"]) for r in spans.records()])
 
 
 def test_sharded_lattice_counts_the_split(tmp_path):
-    """Two gloo ranks, 13 rows in blocks of 4: chunks of (4, 4) and (4, 1)
-    rows, so rank 1 pads 3 rows and rank 0 none; every rank counts its own
-    rows and gathers both blocks of both columns."""
+    """Two gloo ranks, 13 rows in blocks of 4: a whole chunk of (4, 4) rows,
+    then a short one of a block and a 1-row tail, split evenly as (2, 3):
+    the block in shares of 2, the tail a second solve on rank 1. So rank 0
+    pads 1 row and rank 1 none; every rank counts its own rows and solve
+    calls, gathers both blocks of both columns and counts one split."""
     rows = np.arange(26, dtype=np.float32).reshape(13, 2)
     per_rank = launch.spawn(_sharded_rank, 2, "cpu", rows, 4,
                             store_dir=tmp_path)
-    sizes = [[4, 4], [4, 1]]
+    sizes = [[4, 4], [2, 3]]
     for rank, (out, counts, recs) in enumerate(per_rank):
         np.testing.assert_array_equal(out["s"], rows.sum(-1))
-        assert counts["lattice.pad_rows"] == sum(s[0] - s[rank]
+        assert counts["lattice.pad_rows"] == sum(max(s) - s[rank]
                                                  for s in sizes)
         assert counts["lattice.rows"] == sum(s[rank] for s in sizes)
-        assert counts["lattice.chunks"] == 2
-        # two chunks of 2 ranks x 4 rows: a float32 and a uint8 column
-        assert counts["lattice.gather_bytes"] == 2 * 2 * 4 * (4 + 1)
+        assert counts["lattice.chunks"] == 2 + rank
+        assert counts["lattice.split_rounds"] == 1
+        # 2 ranks' blocks padded to 4, then 3 rows: a float32 and a uint8
+        # column
+        assert counts["lattice.gather_bytes"] == 2 * (4 + 1) * (4 + 3)
         assert [c for n, c in recs if n == "lattice.gather"] == [0, 1]
-    assert per_rank[0][1]["lattice.pad_rows"] == 0
-    assert per_rank[1][1]["lattice.pad_rows"] == 3
+        assert [c for n, c in recs if n == "lattice.solve"] == (
+            [0, 1] + [1] * rank)
+    assert per_rank[0][1]["lattice.pad_rows"] == 1
+    assert per_rank[1][1]["lattice.pad_rows"] == 0
+
+
+class _DataAxis:
+    """A device mesh whose data axis is a group no collective runs on."""
+
+    @staticmethod
+    def get_group(axis):
+        return axis
+
+
+# (rows, rows a block, ranks) -> each chunk's blocks, the last chunk's tail
+# and the even splits counted: a world of one; a last chunk under a block
+# (k = 0); one of a block and 2 rows on four ranks (k < D/2), dealt a block
+# a rank; k >= D/2 with a tail and without, split evenly; and the default
+# goal family in chunks of 262,144 on four cards
+DEALS = [
+    ((10, 4, 1), [[4], [4], [2]], 0, 0),
+    ((10, 4, 2), [[4, 4], [2, 0]], 0, 0),
+    ((22, 4, 4), [[4, 4, 4, 4], [4, 2, 0, 0]], 0, 0),
+    ((23, 4, 3), [[4, 4, 4], [3, 3, 5]], 3, 1),
+    ((20, 4, 3), [[4, 4, 4], [3, 3, 2]], 0, 1),
+    ((2642368, 262144, 4), [[262144] * 4, [262144] * 4,
+                            [131072, 131072, 131072, 152000]], 20928, 1),
+]
+
+
+@pytest.mark.parametrize("shape, sizes, tail, splits", DEALS)
+def test_each_rank_solves_its_share_of_each_chunk(monkeypatch, shape, sizes,
+                                                  tail, splits):
+    """Each data rank's solve calls and each chunk's blocks, the ranks run
+    in turn in one process with the gather stood in for: a short last
+    chunk of k >= D/2 blocks goes in even shares, the earlier ranks taking
+    the extra rows, and its tail as a second call on the last rank; every
+    other chunk a block a rank, an empty block solving the last row as a
+    stand-in. ``lattice.split_rounds`` counts the even splits."""
+    n, bpd, D = shape
+    rows = np.arange(n, dtype=np.float32)[:, None]
+    dealt = []
+
+    def gather(t, blocks, group):
+        dealt.append(list(blocks))
+        return [t.new_zeros((m,) + t.shape[1:]) for m in blocks]
+
+    monkeypatch.setattr(datagen, "_gather_rows", gather)
+    for i in range(D):
+        calls = []
+
+        def solve(r):
+            calls.append((int(r[0, 0]), r.shape[0]))
+            return r[:, 0]
+
+        dealt.clear()
+        before = spans.counters()
+        mesh = Mesh(torch.device("cpu"), {DATA_AXIS: D, EXPERT_AXIS: 1}, i,
+                    _DataAxis())
+        datagen.solve_lattice_sharded(solve, rows, mesh, bpd)
+        assert dealt == sizes
+        # (first row, rows) of each call: the blocks lie end to end
+        want, start = [], 0
+        for s in sizes:
+            lo = start + sum(s[:i])
+            want.append((lo, s[i]) if s[i] else (n - 1, 1))
+            start += sum(s)
+        if tail and i == D - 1:
+            lo, m = want.pop()
+            want += [(lo, m - tail), (lo + m - tail, tail)]
+        assert calls == want
+        assert _delta(before, "lattice.rows") == sum(s[i] for s in sizes)
+        assert _delta(before, "lattice.pad_rows") == sum(
+            max(s) - s[i] for s in sizes)
+        assert _delta(before, "lattice.split_rounds") == splits
 
 
 def _rows(n: int) -> np.ndarray:
@@ -402,9 +480,11 @@ def test_a_second_call_leaves_the_first_calls_columns(path):
     assert not np.array_equal(first["s"], second["s"])
 
 
-# (rows, rows a block) on four ranks: chunks of (4, 4, 2, 0) rows, the last
-# rank's block empty; and (16 rows; 4, 4, 4, 1), a ragged last chunk
-FOUR_RANK_CASES = [(10, 4), (29, 4)]
+# (rows, rows a block) on four ranks: a chunk of 2 blocks and 2 rows, split
+# evenly as (2, 2, 2, 4); (16 rows; 3, 3, 3, 4), the last chunk's 3 blocks
+# in shares of 3 and its 1-row tail; and a chunk of a block and 2 rows,
+# dealt as (4, 2, 0, 0), the last two ranks' blocks empty
+FOUR_RANK_CASES = [(10, 4), (29, 4), (6, 4)]
 
 
 def _four_rank_columns():
