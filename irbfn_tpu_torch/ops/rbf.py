@@ -10,10 +10,12 @@ the device of its input:
   kernel against;
 - any other device raises.
 
-The counter ``ops.rbf.forwards`` (``utils/spans.py``) counts the forwards
-that went through the kernel (each is two launches: the region groups'
-partial sums, then their ordered sum): a run can show that its main path
-went through the kernel.
+Each forward through the kernel is the span ``ops.rbf`` (``utils/spans.py``;
+label ``"<regions>x<stages>"``, its ``launch_plan``) and counts
+``ops.rbf.forwards`` (each is two launches: the region groups' partial
+sums, then their ordered sum), ``ops.rbf.rows`` (its batch rows) and
+``ops.rbf.region_groups`` (the grid's region groups): a run can show that
+its main path went through the kernel, and on how many rows.
 
 ``partial=True`` is the forward of one shard of the regions, for a net whose
 region axis is split over the ranks of an expert group
@@ -346,11 +348,13 @@ def _launch(x: torch.Tensor, ops: RBFOperands,
     try:
         forward = (lib.rbf_forward_partial_f32 if partial
                    else lib.rbf_forward_f32)
-        rc = forward(
-            x.data_ptr(), c_packed, lb, ub, delta, w_packed, b,
-            out.data_ptr(), scratch.data_ptr(),
-            scratch.data_ptr() + 4 * parts * B * O, B, R, Kp, F, O, regions,
-            stages, *ok.tail, torch.cuda.current_stream(index).cuda_stream)
+        with spans.span("ops.rbf", label=f"{regions}x{stages}"):
+            rc = forward(
+                x.data_ptr(), c_packed, lb, ub, delta, w_packed, b,
+                out.data_ptr(), scratch.data_ptr(),
+                scratch.data_ptr() + 4 * parts * B * O, B, R, Kp, F, O,
+                regions, stages, *ok.tail,
+                torch.cuda.current_stream(index).cuda_stream)
     finally:
         if index != current:
             torch.cuda.set_device(current)
@@ -358,6 +362,8 @@ def _launch(x: torch.Tensor, ops: RBFOperands,
         raise RuntimeError(f"rbf_forward kernel launch failed: CUDA error "
                            f"{rc}")
     spans.count("ops.rbf.forwards")
+    spans.count("ops.rbf.rows", B)
+    spans.count("ops.rbf.region_groups", parts)
     return out
 
 

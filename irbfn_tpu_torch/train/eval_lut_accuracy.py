@@ -9,10 +9,13 @@ target interpolated on a grid of fill distance h, with the constant from
 the table's second differences).
 
 The net's predictions go through ``WCRBFNet.forward`` under ``no_grad`` in
-``--chunk`` rows: on the card that is the fused RBF kernel, which never
-materialises the (rows, regions, kernels) feature tensor. The endpoints come
-from ``integrate_endpoint_gl`` in f64, a chunk at a time, on the same
-device.
+``--chunk`` rows, in the port's one lattice chunk loop
+(``parallel/datagen.py:solve_lattice_sharded``: pinned staging, the copies
+back overlapped with the next chunk, the ``lattice.*`` spans and counters;
+under a process group the ranks split each chunk): on the card that is the
+fused RBF kernel, which never materialises the (rows, regions, kernels)
+feature tensor. The endpoints come from ``integrate_endpoint_gl`` in f64, a
+chunk at a time, on the same device.
 
 Usage: ``python -m irbfn_tpu_torch.train.eval_lut_accuracy --lut_path LUT
 [--config_f RUN.json --ckpt RUN_DIR_OR_NPZ] [--chunk 262144] [--device cpu]``
@@ -27,6 +30,7 @@ import torch
 
 from irbfn_tpu_torch._device import resolve_device
 from irbfn_tpu_torch.dynamics.spiral import integrate_endpoint_gl
+from irbfn_tpu_torch.parallel.datagen import solve_lattice_sharded
 from irbfn_tpu_torch.solvers.clothoid import wrap_angle
 
 
@@ -56,15 +60,14 @@ def load_lut(path: str) -> dict:
 
 @torch.no_grad()
 def net_params(model, goals: np.ndarray, chunk: int = 1 << 18) -> np.ndarray:
-    """The net's spiral params for every goal, ``chunk`` rows per forward
-    on the model's device (the fused kernel on the card)."""
+    """The net's spiral params for every goal, (N, O) float32: ``chunk``
+    rows per forward on the model's device (the fused kernel on the card),
+    through the lattice chunk loop, on a world of one unless a process
+    group is up."""
     dev = next(model.parameters()).device
-    out = np.empty((goals.shape[0], model.out_features), np.float32)
-    for i0 in range(0, goals.shape[0], chunk):
-        x = torch.as_tensor(goals[i0:i0 + chunk], dtype=torch.float32,
-                            device=dev)
-        out[i0:i0 + chunk] = model(x).cpu().numpy()
-    return out
+    rows = np.asarray(goals, dtype=np.float32)
+    return solve_lattice_sharded(model, rows, batch_per_device=chunk,
+                                 device=dev)
 
 
 @torch.no_grad()

@@ -23,8 +23,13 @@ of it.
 
 Span names begin with their layer (``PREFIXES``): ``lattice.``
 (``parallel/datagen.py``), ``goal.`` (``solvers/goal_mpc.py``), ``ops.``
-(``ops/``); counters also ``nmpc.`` (``solvers/nmpc.py``). ``bench.`` and
-``nccl:`` belong to the benchmark and to ``torch.distributed``.
+(``ops/``: ``ops.library`` around a kernel's build and load, ``ops.admm``
+and ``ops.rbf`` around each launch, labelled with the ADMM variant and the
+RBF forward's ``"<regions>x<stages>"`` plan; counters ``ops.admm.family``,
+``ops.admm.lane``, and ``ops.rbf.forwards``, ``ops.rbf.rows`` (batch rows)
+and ``ops.rbf.region_groups`` (the grid's region groups) a forward);
+counters also ``nmpc.`` (``solvers/nmpc.py``). ``bench.`` and ``nccl:``
+belong to the benchmark and to ``torch.distributed``.
 
 Spans nest within a thread; each thread keeps its own stack of open spans.
 Nothing reads an environment variable: a caller turns tracing on.
